@@ -1,0 +1,66 @@
+"""Carry the JAX package's solve inputs across into the port.
+
+The system's "weights" are its cluster state.  The JAX package holds
+int64 as the ``(hi: int32, lo: uint32)`` split of its ``ops/i64.py``;
+these functions take those arrays as numpy arrays, join every int64
+exactly, and build the port's ``ClusterState`` / ``PendingPods`` on
+``device``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from platform_aware_scheduling_tpu_torch.models.batch_scheduler import (
+    ClusterState,
+    PendingPods,
+)
+from platform_aware_scheduling_tpu_torch.ops.i64 import join_int64
+from platform_aware_scheduling_tpu_torch.ops.rules import RuleSet
+from platform_aware_scheduling_tpu_torch.utils.device import DeviceLike, resolve_device
+
+
+def _put(array, dtype, device: torch.device) -> torch.Tensor:
+    # a copy: the caller's array may be read-only (a view of a JAX array)
+    return torch.from_numpy(np.array(array, dtype=dtype, order="C")).to(device)
+
+
+def cluster_state_from_numpy(
+    values_hi,  # int32 [M, N]
+    values_lo,  # uint32 [M, N]
+    present,  # bool [M, N]
+    rule_rows,  # int32 [R]
+    rule_ops,  # int32 [R]
+    target_hi,  # int32 [R]
+    target_lo,  # uint32 [R]
+    rule_active,  # bool [R]
+    capacity,  # int32 [N]
+    device: DeviceLike = None,
+) -> ClusterState:
+    device = resolve_device(device)
+    return ClusterState(
+        metric_values=_put(join_int64(values_hi, values_lo), np.int64, device),
+        metric_present=_put(present, bool, device),
+        dontschedule=RuleSet(
+            metric_row=_put(rule_rows, np.int32, device),
+            op_id=_put(rule_ops, np.int32, device),
+            target=_put(join_int64(target_hi, target_lo), np.int64, device),
+            active=_put(rule_active, bool, device),
+        ),
+        capacity=_put(capacity, np.int32, device),
+    )
+
+
+def pending_pods_from_numpy(
+    metric_row,  # int32 [P]
+    op_id,  # int32 [P]
+    candidates,  # bool [P, N]
+    device: DeviceLike = None,
+) -> PendingPods:
+    device = resolve_device(device)
+    return PendingPods(
+        metric_row=_put(metric_row, np.int32, device),
+        op_id=_put(op_id, np.int32, device),
+        candidates=_put(candidates, bool, device),
+    )

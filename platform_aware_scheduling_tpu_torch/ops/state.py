@@ -1,0 +1,338 @@
+"""Tensor mirror of the TAS cache: interning tables + dense device tensors,
+updated incrementally by the cache's mutation hooks.
+
+The port's counterpart of ``platform_aware_scheduling_tpu/ops/state.py``.
+Beside the exact host cache (``tas/cache.py``) the mirror keeps interned
+node-name <-> column and metric-name <-> row tables, a dense
+``[metric_capacity, node_capacity]`` int64 milli-unit matrix with a
+presence mask, and compiled per-policy rule arrays.  Capacities grow by
+doubling, as in the JAX package, so shapes change per bucket, never per
+node.
+
+Fidelity: a value is stored as exact milli-units when the ``Quantity``
+converts exactly; an inexact value marks its metric host-only, and an
+unknown operator or out-of-range target marks its rule set host-only.  The
+planner skips both, as the JAX planner does.
+"""
+
+from __future__ import annotations
+
+import threading
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from platform_aware_scheduling_tpu_torch.ops.rules import OP_IDS, RuleSet
+from platform_aware_scheduling_tpu_torch.tas.policy.v1alpha1 import TASPolicy
+from platform_aware_scheduling_tpu_torch.utils.device import DeviceLike, resolve_device
+
+MIN_NODE_CAPACITY = 64
+MIN_METRIC_CAPACITY = 8
+RULE_PAD = 8
+
+
+def _next_capacity(current: int, needed: int) -> int:
+    while current < needed:
+        current *= 2
+    return current
+
+
+@dataclass
+class CompiledRuleSet:
+    """Host (numpy) staging of one strategy's rule list, padded to
+    ``RULE_PAD`` multiples."""
+
+    metric_rows: np.ndarray  # int32 [R_pad]
+    op_ids: np.ndarray  # int32 [R_pad]
+    targets: np.ndarray  # int64 [R_pad] milli-units
+    active: np.ndarray  # bool [R_pad]
+    host_only: bool = False  # unknown operator somewhere -> host fallback
+    metric_names: Tuple[str, ...] = ()
+
+    def to_device(self, device: torch.device) -> RuleSet:
+        return RuleSet(
+            metric_row=torch.from_numpy(self.metric_rows).to(device),
+            op_id=torch.from_numpy(self.op_ids).to(device),
+            target=torch.from_numpy(self.targets).to(device),
+            active=torch.from_numpy(self.active).to(device),
+        )
+
+
+@dataclass
+class CompiledPolicy:
+    """Compiled view of one TASPolicy's strategies."""
+
+    dontschedule: Optional[CompiledRuleSet] = None
+    deschedule: Optional[CompiledRuleSet] = None
+    # scheduleonmetric uses only Rules[0]; an unknown operator compiles to
+    # op_id -1, which ranks by node index
+    scheduleonmetric_row: int = -1
+    scheduleonmetric_op: int = -1
+    scheduleonmetric_metric: str = ""
+
+
+class DeviceView:
+    """An immutable snapshot handed to the solve: the int64 metric matrix
+    and the presence mask on the mirror's device, plus the interning
+    tables they were built against."""
+
+    def __init__(
+        self,
+        values: torch.Tensor,  # int64 [M_cap, N_cap] milli-units
+        present: torch.Tensor,  # bool [M_cap, N_cap]
+        node_names: List[str],
+        node_index: Dict[str, int],
+        version: int,
+    ):
+        self.values = values
+        self.present = present
+        self.node_names = node_names
+        self.node_index = node_index
+        self.version = version
+
+    @property
+    def node_capacity(self) -> int:
+        return self.present.shape[1]
+
+
+class TensorStateMirror:
+    """Subscribes to AutoUpdatingCache mutation hooks and keeps the device
+    tensors in sync.  Thread-safe; reads publish copy-on-write snapshots."""
+
+    def __init__(
+        self,
+        node_capacity: int = MIN_NODE_CAPACITY,
+        metric_capacity: int = MIN_METRIC_CAPACITY,
+        device: DeviceLike = None,
+    ):
+        self.device = resolve_device(device)
+        self._lock = threading.Lock()
+        self._node_index: Dict[str, int] = {}
+        self._node_names: List[str] = []
+        self._metric_index: Dict[str, int] = {}
+        self._free_metric_rows: List[int] = []
+        self._values = np.zeros((metric_capacity, node_capacity), dtype=np.int64)
+        self._present = np.zeros((metric_capacity, node_capacity), dtype=bool)
+        self._host_only_metrics: Dict[str, bool] = {}
+        self._policies: Dict[Tuple[str, str], CompiledPolicy] = {}
+        # sources kept so policies can be recompiled when a freed metric row
+        # is reused (their rule arrays hold row indices)
+        self._policy_sources: Dict[Tuple[str, str], TASPolicy] = {}
+        # bumped only when values/present/interning change: policy churn
+        # must not force a metric-matrix re-upload
+        self._version = 0
+        self._view: Optional[DeviceView] = None
+
+    # -- wiring ---------------------------------------------------------------
+
+    def attach(self, cache) -> None:
+        """Subscribe to a tas.cache.AutoUpdatingCache's mutation hooks."""
+        cache.on_metric_write.append(self.on_metric_write)
+        cache.on_metric_delete.append(self.on_metric_delete)
+        cache.on_policy_write.append(self.on_policy_write)
+        cache.on_policy_delete.append(self.on_policy_delete)
+
+    # -- interning ------------------------------------------------------------
+
+    def _intern_node(self, name: str) -> int:
+        col = self._node_index.get(name)
+        if col is not None:
+            return col
+        col = len(self._node_names)
+        if col >= self._values.shape[1]:
+            new_cap = _next_capacity(self._values.shape[1], col + 1)
+            grow = ((0, 0), (0, new_cap - self._values.shape[1]))
+            self._values = np.pad(self._values, grow)
+            self._present = np.pad(self._present, grow)
+        self._node_index[name] = col
+        self._node_names.append(name)
+        return col
+
+    def _intern_metric(self, name: str) -> int:
+        row = self._metric_index.get(name)
+        if row is not None:
+            return row
+        if self._free_metric_rows:
+            row = self._free_metric_rows.pop()
+        else:
+            row = len(self._metric_index)
+            if row >= self._values.shape[0]:
+                new_cap = _next_capacity(self._values.shape[0], row + 1)
+                grow = ((0, new_cap - self._values.shape[0]), (0, 0))
+                self._values = np.pad(self._values, grow)
+                self._present = np.pad(self._present, grow)
+        self._metric_index[name] = row
+        self._values[row, :] = 0
+        self._present[row, :] = False
+        return row
+
+    # -- cache hooks ----------------------------------------------------------
+
+    def on_metric_write(self, metric_name: str, info) -> None:
+        """info: NodeMetricsInfo (node -> NodeMetric) or None (registration
+        only)."""
+        with self._lock:
+            shape_before = self._values.shape
+            row = self._intern_metric(metric_name)
+            if info is None:
+                if self._values.shape != shape_before:
+                    self._version += 1
+                return
+            # stage the new row, then bump the version only on real change:
+            # the periodic refresh rewrites every metric each sync period and
+            # steady-state values must not invalidate plans
+            host_only = False
+            staged: Dict[int, int] = {}
+            for node_name, metric in info.items():
+                col = self._intern_node(node_name)
+                milli, exact = metric.value.milli_value_exact()
+                if not exact:
+                    host_only = True
+                staged[col] = milli
+            grew = self._values.shape != shape_before
+            new_values = np.zeros(self._values.shape[1], dtype=np.int64)
+            new_present = np.zeros(self._values.shape[1], dtype=bool)
+            if staged:
+                cols = np.fromiter(staged.keys(), dtype=np.int64, count=len(staged))
+                new_values[cols] = np.fromiter(
+                    staged.values(), dtype=np.int64, count=len(staged)
+                )
+                new_present[cols] = True
+            self._host_only_metrics[metric_name] = host_only
+            if (
+                grew
+                or not np.array_equal(self._present[row], new_present)
+                or not np.array_equal(self._values[row], new_values)
+            ):
+                self._values[row] = new_values
+                self._present[row] = new_present
+                self._version += 1
+
+    def on_metric_delete(self, metric_name: str) -> None:
+        with self._lock:
+            row = self._metric_index.pop(metric_name, None)
+            self._host_only_metrics.pop(metric_name, None)
+            if row is None:
+                return
+            self._present[row, :] = False
+            self._free_metric_rows.append(row)
+            self._version += 1
+            # compiled rule arrays may reference the freed row; if it is
+            # later reused for another metric they would read the wrong
+            # values — recompile every policy against live rows
+            for key, source in self._policy_sources.items():
+                self._policies[key] = self._compile_policy(source)
+
+    def on_policy_write(self, namespace: str, name: str, policy: TASPolicy) -> None:
+        with self._lock:
+            shape_before = self._values.shape
+            self._policy_sources[(namespace, name)] = policy
+            self._policies[(namespace, name)] = self._compile_policy(policy)
+            if self._values.shape != shape_before:  # a rule interned a new metric
+                self._version += 1
+
+    def on_policy_delete(self, namespace: str, name: str) -> None:
+        with self._lock:
+            self._policies.pop((namespace, name), None)
+            self._policy_sources.pop((namespace, name), None)
+
+    # -- policy compilation ---------------------------------------------------
+
+    def _compile_rules(self, rules) -> CompiledRuleSet:
+        count = len(rules)
+        pad = max(RULE_PAD, -(-count // RULE_PAD) * RULE_PAD)
+        metric_rows = np.zeros(pad, dtype=np.int32)
+        op_ids = np.zeros(pad, dtype=np.int32)
+        targets = np.zeros(pad, dtype=np.int64)
+        active = np.zeros(pad, dtype=bool)
+        host_only = False
+        for idx, rule in enumerate(rules):
+            metric_rows[idx] = self._intern_metric(rule.metricname)
+            op = OP_IDS.get(rule.operator)
+            if op is None:
+                host_only = True
+                op = -1
+            op_ids[idx] = op
+            if abs(int(rule.target)) > (2**63 - 1) // 1000:
+                host_only = True  # milli-domain target would overflow int64
+            else:
+                targets[idx] = np.int64(rule.target) * np.int64(1000)
+            active[idx] = True
+        return CompiledRuleSet(
+            metric_rows=metric_rows,
+            op_ids=op_ids,
+            targets=targets,
+            active=active,
+            host_only=host_only,
+            metric_names=tuple(rule.metricname for rule in rules),
+        )
+
+    def _compile_policy(self, policy: TASPolicy) -> CompiledPolicy:
+        compiled = CompiledPolicy()
+        strategies = policy.strategies
+        if "dontschedule" in strategies:
+            compiled.dontschedule = self._compile_rules(strategies["dontschedule"].rules)
+        if "deschedule" in strategies:
+            compiled.deschedule = self._compile_rules(strategies["deschedule"].rules)
+        som = strategies.get("scheduleonmetric")
+        if som is not None and som.rules and som.rules[0].metricname:
+            rule = som.rules[0]
+            compiled.scheduleonmetric_row = self._intern_metric(rule.metricname)
+            op = OP_IDS.get(rule.operator)
+            compiled.scheduleonmetric_op = -1 if op is None else op
+            compiled.scheduleonmetric_metric = rule.metricname
+        return compiled
+
+    # -- reads ----------------------------------------------------------------
+
+    def policy(self, namespace: str, name: str) -> Optional[CompiledPolicy]:
+        with self._lock:
+            return self._policies.get((namespace, name))
+
+    def metric_host_only(self, metric_name: str) -> bool:
+        with self._lock:
+            return self._host_only_metrics.get(metric_name, False)
+
+    @property
+    def version(self) -> int:
+        with self._lock:
+            return self._version
+
+    def device_view(self) -> DeviceView:
+        """Publish (and memoize per version) the device snapshot."""
+        with self._lock:
+            return self._view_locked()
+
+    def policies_with_view(
+        self, keys: Sequence[Tuple[str, str]]
+    ) -> Tuple[Dict[Tuple[str, str], Optional[CompiledPolicy]], DeviceView, frozenset]:
+        """Atomic ({(ns, name): policy}, view, host-only metric names) for a
+        whole batch under ONE lock acquisition — a per-policy loop could
+        straddle a metric delete + row reuse, leaving earlier policies'
+        compiled row indices pointing at a different metric in the view the
+        solve uses."""
+        with self._lock:
+            policies = {key: self._policies.get(key) for key in keys}
+            host_only = frozenset(
+                name for name, flag in self._host_only_metrics.items() if flag
+            )
+            return policies, self._view_locked(), host_only
+
+    def _view_locked(self) -> DeviceView:
+        if self._view is not None and self._view.version == self._version:
+            return self._view
+        values = torch.from_numpy(self._values.copy()).to(self.device)
+        present = torch.from_numpy(self._present.copy()).to(self.device)
+        if self.device.type == "cuda":
+            # the upload must have landed before any reader sees the view
+            torch.cuda.current_stream(self.device).synchronize()
+        self._view = DeviceView(
+            values=values,
+            present=present,
+            node_names=list(self._node_names),
+            node_index=dict(self._node_index),
+            version=self._version,
+        )
+        return self._view

@@ -1,0 +1,148 @@
+"""The plain greedy assignment and its dispatch, held exactly against the JAX
+package's scan (``greedy_assign_kernel``) and its Pallas kernel run in
+interpret mode on the CPU (``greedy_assign_pallas``)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from platform_aware_scheduling_tpu.ops import i64 as jax_i64
+from platform_aware_scheduling_tpu.ops.assign import greedy_assign_kernel
+from platform_aware_scheduling_tpu.ops.pallas_assign import greedy_assign_pallas
+from platform_aware_scheduling_tpu_torch.ops import _build, assign, cuda_assign
+from platform_aware_scheduling_tpu_torch.ops.i64 import INT64_MAX, INT64_MIN
+
+
+def _check(score, eligible, capacity, pallas=True):
+    """Port's plain version == JAX scan (== Pallas interpret) exactly."""
+    got = assign.greedy_assign_reference(
+        torch.from_numpy(score), torch.from_numpy(eligible), torch.from_numpy(capacity)
+    )
+    args = (
+        jax_i64.from_int64(score),
+        jnp.asarray(eligible),
+        jnp.asarray(capacity),
+    )
+    wants = [greedy_assign_kernel(*args)]
+    if pallas:
+        wants.append(greedy_assign_pallas(*args, interpret=True))
+    for want in wants:
+        np.testing.assert_array_equal(
+            got.node_for_pod.numpy(), np.asarray(want.node_for_pod)
+        )
+        np.testing.assert_array_equal(
+            got.capacity_left.numpy(), np.asarray(want.capacity_left)
+        )
+    assert got.node_for_pod.dtype == torch.int32
+    assert got.capacity_left.dtype == torch.int32
+    return got
+
+
+class TestGreedyReference:
+    @pytest.mark.parametrize("seed", range(6))
+    def test_seeded_odd_shapes(self, seed):
+        rng = np.random.default_rng(seed)
+        # odd P and N take the JAX wrapper's padding paths
+        p = int(rng.integers(1, 16)) * 2 + 1
+        n = int(rng.integers(1, 150)) * 2 + 1
+        score = rng.integers(-(2**62), 2**62, size=(p, n)).astype(np.int64)
+        eligible = rng.random((p, n)) > 0.3
+        capacity = rng.integers(0, 3, size=n).astype(np.int32)
+        _check(score, eligible, capacity)
+
+    def test_u32_bias_edge_values(self):
+        vals = np.array(
+            [[2**31, 2**31 - 1, 2**32 - 1, 0, -1, -(2**31), INT64_MAX, INT64_MIN]],
+            dtype=np.int64,
+        )
+        score = np.repeat(vals, 8, axis=0)
+        _check(score, np.ones_like(score, dtype=bool), np.ones(8, dtype=np.int32))
+
+    def test_eligible_int64_min_lane_is_chosen(self):
+        """The only ok lane scores INT64_MIN: it must still be chosen."""
+        score = np.array([[INT64_MIN, 5, INT64_MAX]], dtype=np.int64)
+        eligible = np.array([[True, False, True]])
+        capacity = np.array([1, 1, 0], dtype=np.int32)
+        got = _check(score, eligible, capacity)
+        assert got.node_for_pod.tolist() == [0]
+        assert got.capacity_left.tolist() == [0, 1, 0]
+
+    def test_heavy_contention(self):
+        """Equal scores, capacity one: pods fill nodes in index order."""
+        p, n = 13, 9
+        score = np.zeros((p, n), dtype=np.int64)
+        got = _check(score, np.ones((p, n), dtype=bool), np.ones(n, dtype=np.int32))
+        assert got.node_for_pod.tolist() == list(range(n)) + [-1] * (p - n)
+        assert got.capacity_left.tolist() == [0] * n
+
+    def test_zero_capacity_never_chosen(self):
+        score = np.array([[9, 1, 0], [9, 5, 1]], dtype=np.int64)
+        capacity = np.array([0, 2, 0], dtype=np.int32)
+        got = _check(score, np.ones((2, 3), dtype=bool), capacity)
+        assert got.node_for_pod.tolist() == [1, 1]
+
+    def test_no_ok_lane_leaves_capacity(self):
+        score = np.array([[3, 4], [1, 2]], dtype=np.int64)
+        eligible = np.array([[False, False], [True, True]])
+        capacity = np.array([1, 1], dtype=np.int32)
+        got = _check(score, eligible, capacity)
+        assert got.node_for_pod.tolist() == [-1, 1]
+        assert got.capacity_left.tolist() == [1, 0]
+
+    @pytest.mark.parametrize("shape", [(0, 5), (3, 0), (0, 0)])
+    def test_empty(self, shape):
+        p, n = shape
+        got = assign.greedy_assign_reference(
+            torch.zeros((p, n), dtype=torch.int64),
+            torch.ones((p, n), dtype=torch.bool),
+            torch.ones(n, dtype=torch.int32),
+        )
+        assert got.node_for_pod.tolist() == [-1] * p
+        assert got.capacity_left.tolist() == [1] * n
+
+
+class TestDispatch:
+    def test_cpu_takes_plain_version_without_the_builder(self, monkeypatch):
+        def refuse(*_args, **_kwargs):
+            raise AssertionError("the CPU path touched the kernel builder")
+
+        monkeypatch.setattr(_build, "find_nvcc", refuse)
+        monkeypatch.setattr(_build, "build", refuse)
+        monkeypatch.setattr(_build, "load", refuse)
+        monkeypatch.setattr(cuda_assign.greedy_assign_cuda, "LAUNCHES", 0)
+        rng = np.random.default_rng(3)
+        score = torch.from_numpy(rng.integers(-100, 100, size=(7, 11)).astype(np.int64))
+        eligible = torch.from_numpy(rng.random((7, 11)) > 0.2)
+        capacity = torch.from_numpy(rng.integers(0, 3, size=11).astype(np.int32))
+        got = assign.greedy_assign(score, eligible, capacity)
+        want = assign.greedy_assign_reference(score, eligible, capacity)
+        assert torch.equal(got.node_for_pod, want.node_for_pod)
+        assert torch.equal(got.capacity_left, want.capacity_left)
+        assert cuda_assign.greedy_assign_cuda.LAUNCHES == 0
+
+    def test_cuda_wrapper_refuses_cpu_tensors(self):
+        with pytest.raises(ValueError, match="not cuda"):
+            cuda_assign.greedy_assign_cuda(
+                torch.zeros((2, 3), dtype=torch.int64),
+                torch.ones((2, 3), dtype=torch.bool),
+                torch.ones(3, dtype=torch.int32),
+            )
+
+    def test_mixed_devices_refused(self):
+        with pytest.raises(ValueError, match="different devices"):
+            assign.greedy_assign(
+                torch.zeros((2, 3), dtype=torch.int64),
+                torch.ones((2, 3), dtype=torch.bool, device="meta"),
+                torch.ones(3, dtype=torch.int32),
+            )
+
+    def test_library_named_by_source_and_flags(self, monkeypatch):
+        path = _build.library_path("greedy_assign")
+        assert path.parent == _build.BUILD_DIR
+        assert path.name.startswith("libgreedy_assign-") and path.suffix == ".so"
+        command = _build._nvcc_command("nvcc", "greedy_assign", path)
+        assert "arch=compute_90a,code=sm_90a" in command
+        assert command[-1] == str(_build.CSRC / "greedy_assign.cu")
+        monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-G",))
+        assert _build.library_path("greedy_assign") != path

@@ -1,0 +1,154 @@
+"""Package-level rules of the port: it imports neither JAX nor the JAX
+package, its entry points refuse to run quietly on the CPU, and
+``convert.py`` carries int64 across exactly."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import platform_aware_scheduling_tpu_torch as port
+from platform_aware_scheduling_tpu.ops import i64 as jax_i64
+from platform_aware_scheduling_tpu_torch import convert
+from platform_aware_scheduling_tpu_torch.models import batch_scheduler
+from platform_aware_scheduling_tpu_torch.ops import i64
+from platform_aware_scheduling_tpu_torch.ops.state import TensorStateMirror
+from platform_aware_scheduling_tpu_torch.tas.cache import AutoUpdatingCache
+from platform_aware_scheduling_tpu_torch.tas.planner import BatchPlanner
+
+PORT_ROOT = Path(port.__file__).resolve().parent
+REPO_ROOT = PORT_ROOT.parent
+FORBIDDEN = ("jax", "jaxlib", "platform_aware_scheduling_tpu")
+
+
+def _port_modules():
+    for path in sorted(PORT_ROOT.rglob("*.py")):
+        rel = path.relative_to(REPO_ROOT).with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        yield path, ".".join(parts)
+
+
+def test_import_pulls_in_no_jax():
+    """Import every module of the port in a fresh interpreter (this one
+    already has JAX loaded by tests/conftest.py)."""
+    modules = [name for _path, name in _port_modules()]
+    code = (
+        "import importlib, sys\n"
+        f"for name in {modules!r}:\n"
+        "    importlib.import_module(name)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "print(len(bad), bad)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", code],
+        cwd=REPO_ROOT,
+        env=env,
+        capture_output=True,
+        text=True,
+        timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "0 []", out.stdout
+
+
+def test_no_source_imports_the_jax_package():
+    offenders = []
+    for path, _name in _port_modules():
+        for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+            if isinstance(node, ast.Import):
+                names = [alias.name for alias in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                if name.split(".")[0] in FORBIDDEN:
+                    offenders.append(f"{path.name}:{node.lineno} {name}")
+    assert offenders == []
+
+
+def test_every_kernel_source_is_built():
+    from platform_aware_scheduling_tpu_torch.ops import _build
+
+    sources = sorted(p.stem for p in (PORT_ROOT / "csrc").glob("*.cu"))
+    assert sources == sorted(_build.KERNELS)
+
+
+class TestDeviceRule:
+    @pytest.fixture(autouse=True)
+    def _no_gpu(self, monkeypatch):
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+    @pytest.mark.parametrize(
+        "entry",
+        [
+            lambda: TensorStateMirror(),
+            lambda: batch_scheduler.example_inputs(),
+            lambda: convert.pending_pods_from_numpy(
+                np.zeros(1, np.int32), np.zeros(1, np.int32), np.ones((1, 2), bool)
+            ),
+            lambda: convert.cluster_state_from_numpy(
+                *[np.zeros((1, 2), t) for t in (np.int32, np.uint32, bool)],
+                *[np.zeros(8, t) for t in (np.int32, np.int32, np.int32, np.uint32, bool)],
+                np.ones(2, np.int32),
+            ),
+            lambda: BatchPlanner(AutoUpdatingCache(), TensorStateMirror(device="cpu")),
+        ],
+        ids=["mirror", "example_inputs", "pending_pods", "cluster_state", "planner"],
+    )
+    def test_no_device_and_no_gpu_raises(self, entry):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            entry()
+
+    def test_explicit_cpu_runs(self):
+        mirror = TensorStateMirror(device="cpu")
+        planner = BatchPlanner(AutoUpdatingCache(), mirror, device="cpu")
+        assert planner.device.type == mirror.device.type == "cpu"
+        assert mirror.device_view().values.device.type == "cpu"
+
+    def test_planner_refuses_other_device_than_mirror(self):
+        with pytest.raises(ValueError, match="differs"):
+            BatchPlanner(AutoUpdatingCache(), TensorStateMirror(device="cpu"), device="meta")
+
+    def test_unported_solver_refused(self):
+        with pytest.raises(ValueError, match="sinkhorn"):
+            BatchPlanner(
+                AutoUpdatingCache(), TensorStateMirror(device="cpu"), solver="sinkhorn", device="cpu"
+            )
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_int64_split_round_trip(seed):
+    rng = np.random.default_rng(seed)
+    values = np.concatenate(
+        [
+            rng.integers(i64.INT64_MIN, i64.INT64_MAX, size=200, dtype=np.int64),
+            np.array([i64.INT64_MIN, -(2**32), -(2**31), -1, 0, 2**31, 2**32 - 1, i64.INT64_MAX]),
+        ]
+    )
+    hi, lo = i64.split_int64(values)
+    want_hi, want_lo = jax_i64.split_int64_np(values)
+    assert hi.dtype == np.int32 and lo.dtype == np.uint32
+    np.testing.assert_array_equal(hi, want_hi)
+    np.testing.assert_array_equal(lo, want_lo)
+    np.testing.assert_array_equal(i64.join_int64(hi, lo), values)
+    state = convert.cluster_state_from_numpy(
+        hi.reshape(8, -1),
+        lo.reshape(8, -1),
+        np.ones((8, values.size // 8), bool),
+        np.zeros(8, np.int32),
+        np.zeros(8, np.int32),
+        hi[:8],
+        lo[:8],
+        np.ones(8, bool),
+        np.ones(values.size // 8, np.int32),
+        device="cpu",
+    )
+    np.testing.assert_array_equal(state.metric_values.numpy().ravel(), values)
+    np.testing.assert_array_equal(state.dontschedule.target.numpy(), values[:8])
