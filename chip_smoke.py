@@ -4,12 +4,15 @@
     python3 chip_smoke.py
 
 Builds every CUDA kernel of the port from ``platform_aware_scheduling_tpu_torch/csrc``,
-holds each against its plain PyTorch version on the card, then drives the
-batch planner's main path at full size — 10,000 nodes, 8 metrics, 4 TAS
-policies, 1,000 pending pods — through 5 sync periods, checking every plan
-against the same planner on the CPU and that each replan launched the
-kernel once.  Prints the card, the timings, a ``{"kernels": [...]}`` line
-and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
+holds each against its plain PyTorch version on the card (the greedy-assign
+kernel also against the plain model of its two stages, rescan count
+included), then drives the batch planner's main path at full size — 10,000
+nodes, 8 metrics, 4 TAS policies, 1,000 pending pods — through 5 sync
+periods, checking every plan against the same planner on the CPU and that
+each replan launched the kernel once.  Prints the card, the timings (the
+kernel's two stages and its rescans at the main path's inputs and three
+others), a ``{"kernels": [...]}`` line and, last,
+``{"ok": true, "device": {...}}``.  Exits non-zero, with no
 result line, when there is no GPU, when the package is not beside this
 script, or when any phase fails.
 """
@@ -64,7 +67,7 @@ def card_line() -> str:
 # -- phase 3: kernel parity --------------------------------------------------------
 
 
-def parity_cases(torch, np, max_nodes: int):
+def parity_cases(torch, np, max_nodes: int, list_size: int):
     """(name, score, eligible, capacity) on the card, from numpy seeds."""
     rng = np.random.default_rng(SEED)
 
@@ -112,27 +115,102 @@ def parity_cases(torch, np, max_nodes: int):
     )
     cases.append(random_case(f"shared-memory limit 64x{max_nodes}", 64, max_nodes))
     cases.append(random_case("slice shape 1000x10000", 1000, 10_000))
+    # the staged kernel's own paths: lists of exactly K-1, K and K+1 lanes
+    # used up under contention, the main path's padded shape, rows with
+    # fewer than K ok lanes, and rows that start at every alignment
+    for n in (list_size - 1, list_size, list_size + 1):
+        cases.append(
+            (
+                f"contention {n + 8}x{n} equal scores, capacity 1",
+                put(np.zeros((n + 8, n), np.int64)),
+                put(np.ones((n + 8, n), bool)),
+                put(np.ones(n, np.int32)),
+            )
+        )
+    p, n, real = 1000, 16_384, 10_000
+    score = rng.integers(0, 100_000, size=(p, n), dtype=np.int64)
+    eligible = rng.random((p, n)) < 0.97
+    eligible[:, real:] = False
+    capacity = rng.integers(0, 111, size=n).astype(np.int32)
+    cases.append((f"padded {p}x{n}, columns {real}: ineligible", put(score), put(eligible), put(capacity)))
+    eligible = np.zeros((200, 2048), bool)
+    for pod in range(200):
+        eligible[pod, rng.choice(2048, size=pod % (list_size + 2), replace=False)] = True
+    cases.append(
+        (
+            f"200x2048, rows with 0..{list_size + 1} eligible lanes",
+            put(rng.integers(-5, 5, size=(200, 2048), dtype=np.int64)),
+            put(eligible),
+            put(rng.integers(0, 3, size=2048).astype(np.int32)),
+        )
+    )
+    cases.append(random_case("odd N 97x1001, rows at every alignment", 97, 1001, cap_hi=4))
+    # a view one row into larger tensors: contiguous, but the score rows
+    # start 8 bytes off 16-byte alignment, so every row takes the scalar path
+    score = put(rng.integers(-(2**62), 2**62, size=(41, 515), dtype=np.int64))[1:]
+    eligible = put(rng.random((41, 515)) < 0.7)[1:]
+    cases.append(("misaligned base 40x515", score, eligible, put(rng.integers(0, 3, 515).astype(np.int32))))
+    # two inputs timed beside the main path's: scores that rise with the
+    # node index (every lane enters a warp's list in stage 1), and four
+    # score rows shared by 1000 pods on nodes that hold one pod each (most
+    # pods use up their list and rescan)
+    p, n = 1000, 16_384
+    cases.append(
+        (
+            f"ascending scores {p}x{n}",
+            put(np.broadcast_to(np.arange(n, dtype=np.int64), (p, n))),
+            put(np.ones((p, n), bool)),
+            put(np.full(n, ALLOCATABLE_PODS, np.int32)),
+        )
+    )
+    rows = rng.integers(-(2**62), 2**62, size=(4, n), dtype=np.int64)
+    cases.append(
+        (
+            f"shared rows, capacity 1 {p}x{n}",
+            put(rows[np.arange(p) % 4]),
+            put(np.ones((p, n), bool)),
+            put(np.ones(n, np.int32)),
+        )
+    )
     return cases
 
 
 def run_parity(torch, cases) -> int:
-    """Kernel against plain version, exactly, on every case; returns the
-    largest absolute difference seen (0 when exact)."""
-    from platform_aware_scheduling_tpu_torch.ops.assign import greedy_assign_reference
-    from platform_aware_scheduling_tpu_torch.ops.cuda_assign import greedy_assign_cuda
+    """Kernel against plain version, exactly, on every case, and against
+    the staged plain model at the kernel's K, rescan count included;
+    returns the largest absolute difference seen (0 when exact)."""
+    from platform_aware_scheduling_tpu_torch.ops.assign import (
+        greedy_assign_reference,
+        greedy_assign_staged_reference,
+    )
+    from platform_aware_scheduling_tpu_torch.ops.cuda_assign import (
+        greedy_assign_cuda_with_rescans,
+        list_size,
+    )
 
     max_err = 0
     for name, score, eligible, capacity in cases:
-        got = greedy_assign_cuda(score, eligible, capacity)
+        got, rescans = greedy_assign_cuda_with_rescans(score, eligible, capacity)
         torch.cuda.synchronize()
         want = greedy_assign_reference(score, eligible, capacity)
+        staged, staged_rescans = greedy_assign_staged_reference(
+            score, eligible, capacity, list_size()
+        )
         torch.cuda.synchronize()
-        for out, ref in zip(got, want):
+        for out, ref, model in zip(got, want, staged):
             check(out.dtype == ref.dtype and out.shape == ref.shape, f"{name}: output form")
             err = (out.long() - ref.long()).abs().max().item() if out.numel() else 0
             max_err = max(max_err, err)
             check(torch.equal(out, ref), f"{name}: kernel disagrees with the plain version")
-        print(f"parity {name}: exact ({int((got.node_for_pod >= 0).sum())} pods placed)")
+            check(torch.equal(out, model), f"{name}: kernel disagrees with the staged model")
+        check(
+            int(rescans.item()) == staged_rescans,
+            f"{name}: kernel rescanned {int(rescans.item())} pods, the staged model {staged_rescans}",
+        )
+        print(
+            f"parity {name}: exact ({int((got.node_for_pod >= 0).sum())} pods placed, "
+            f"{staged_rescans} rescans)"
+        )
     return max_err
 
 
@@ -342,20 +420,31 @@ def cuda_ms(torch, fn, repeats: int) -> float:
 
 
 def time_kernel(torch, score, eligible, capacity) -> dict:
-    """Kernel and plain-version times on one problem, with the least time
-    the card could take: the bytes the function must move over the card's
-    memory rate.  It must read the whole eligible mask, the score of every
+    """Kernel, stage and plain-version times on one problem, the stage-2
+    rescan count, and the least time the card could take: the bytes the
+    function must move over the card's memory rate.  It must read the whole eligible mask, the score of every
     eligible lane, the capacity, and write the result and the capacity
     left; the dense figure counts every score as read."""
     from platform_aware_scheduling_tpu_torch.ops.assign import greedy_assign_reference
-    from platform_aware_scheduling_tpu_torch.ops.cuda_assign import greedy_assign_cuda
+    from platform_aware_scheduling_tpu_torch.ops.cuda_assign import (
+        greedy_assign_cuda,
+        launch_candidates,
+        launch_resolve,
+    )
 
     p, n = score.shape
     bytes_needed = p * n + 8 * int(eligible.sum()) + 8 * n + 4 * p
     bytes_dense = 9 * p * n + 8 * n + 4 * p
+    lists, counts = launch_candidates(score, eligible, capacity)
+    _result, rescans = launch_resolve(score, eligible, capacity, lists, counts)
     return {
         "shape": [p, n],
         "ms": cuda_ms(torch, lambda: greedy_assign_cuda(score, eligible, capacity), 20),
+        "candidates_ms": cuda_ms(torch, lambda: launch_candidates(score, eligible, capacity), 20),
+        "resolve_ms": cuda_ms(
+            torch, lambda: launch_resolve(score, eligible, capacity, lists, counts), 20
+        ),
+        "rescans": int(rescans.item()),
         "plain_ms": cuda_ms(torch, lambda: greedy_assign_reference(score, eligible, capacity), 3),
         "bound_ms": bytes_needed / HBM_BYTES_PER_S * 1e3,
         "dense_bound_ms": bytes_dense / HBM_BYTES_PER_S * 1e3,
@@ -416,7 +505,7 @@ def main() -> int:
     print(f"build: {', '.join(sorted(libs))} in {time.perf_counter() - start:.3f} s")
 
     limit = cuda_assign.max_nodes(torch.device("cuda"))
-    cases = parity_cases(torch, np, limit)
+    cases = parity_cases(torch, np, limit, cuda_assign.list_size())
     max_err = run_parity(torch, cases)
     check_node_limit(torch, limit)
 
@@ -457,13 +546,17 @@ def main() -> int:
         f"solve {parts['solve_ms']:.3f} ms (score_and_filter device "
         f"{parts['score_and_filter_device_ms']:.3f} ms), readback {parts['readback_ms']:.3f} ms [{card}]"
     )
-    slice_inputs = next(case[1:] for case in cases if case[0].startswith("slice shape"))
-    slice_times = time_kernel(torch, *slice_inputs)
-    main_times = time_kernel(torch, *main_inputs)
-    for label, t in (("slice shape", slice_times), ("main-path inputs", main_times)):
+    timed = {
+        label: time_kernel(torch, *next(case[1:] for case in cases if case[0].startswith(label)))
+        for label in ("slice shape", "ascending scores", "shared rows, capacity 1")
+    }
+    main_times = timed["main-path inputs"] = time_kernel(torch, *main_inputs)
+    for label, t in timed.items():
         p, n = t["shape"]
         print(
-            f"greedy_assign {label} {p}x{n}: kernel {t['ms']:.4f} ms, plain PyTorch "
+            f"greedy_assign {label} {p}x{n}: kernel {t['ms']:.4f} ms (two launches: "
+            f"candidates {t['candidates_ms']:.4f} ms, resolve {t['resolve_ms']:.4f} ms, "
+            f"{t['rescans']} rescans), plain PyTorch "
             f"{t['plain_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms (dense "
             f"{t['dense_bound_ms']:.4f} ms); no single PyTorch call computes this function [{card}]"
         )
@@ -483,6 +576,9 @@ def main() -> int:
             "library_ms": None,
             "parity": True,
             "shape": main_times["shape"],
+            "candidates_ms": main_times["candidates_ms"],
+            "resolve_ms": main_times["resolve_ms"],
+            "rescans": main_times["rescans"],
         }
     ]
     print(json.dumps({"kernels": kernels}))

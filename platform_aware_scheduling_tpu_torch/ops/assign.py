@@ -15,7 +15,7 @@ plain version.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -44,17 +44,68 @@ def greedy_assign_reference(
     if p == 0 or n == 0:
         return AssignResult(node_for_pod=node_for_pod, capacity_left=cap)
     lanes = torch.arange(n, dtype=torch.int64, device=device)
-    none = torch.full((), n, dtype=torch.int64, device=device)
-    floor = torch.full((), i64.INT64_MIN, dtype=torch.int64, device=device)
     for pod in range(p):
-        ok = eligible[pod].bool() & (cap > 0)
-        row = score[pod]
-        best = torch.where(ok, row, floor).max()
-        chosen = torch.where(ok & (row == best), lanes, none).min()
-        found = ok.any()
-        node_for_pod[pod] = torch.where(found, chosen, -1).to(torch.int32)
-        cap -= ((lanes == chosen) & found).to(torch.int32)
+        _assign_one(score[pod], eligible[pod].bool() & (cap > 0), lanes, pod, node_for_pod, cap)
     return AssignResult(node_for_pod=node_for_pod, capacity_left=cap)
+
+
+def _assign_one(row, ok, lanes, pod, node_for_pod, cap) -> None:
+    """One greedy step in place: the best ok lane of ``row`` (ties to the
+    lowest index) takes pod ``pod`` and loses one capacity; no ok lane
+    leaves -1 and the capacity as they are."""
+    best = torch.where(ok, row, i64.INT64_MIN).max()
+    chosen = torch.where(ok & (row == best), lanes, lanes.numel()).min()
+    found = ok.any()
+    node_for_pod[pod] = torch.where(found, chosen, -1).to(torch.int32)
+    cap -= ((lanes == chosen) & found).to(torch.int32)
+
+
+def greedy_assign_staged_reference(
+    score: torch.Tensor,  # int64 [P, N] — larger is better
+    eligible: torch.Tensor,  # bool [P, N]
+    capacity: torch.Tensor,  # int32 [N]
+    k: int,
+) -> Tuple[AssignResult, int]:
+    """The CUDA kernel's two stages in plain PyTorch, for tests and
+    ``chip_smoke.py``; returns the result and the number of rescans.
+
+    Stage 1 lists, for each pod, its best ``k`` starting-ok lanes
+    (``eligible & capacity > 0``) by (score descending, index ascending).
+    Stage 2 walks the pods in order: the first listed lane that still has
+    capacity takes the pod; when every listed lane is used up and the row
+    had more starting-ok lanes, the pod's whole row is rescanned against
+    the current capacity; otherwise the pod gets -1.  Equal to
+    :func:`greedy_assign_reference`, since capacity only goes down."""
+    if k < 1:
+        raise ValueError(f"k must be at least 1, got {k}")
+    p, n = eligible.shape
+    device = score.device
+    node_for_pod = torch.full((p,), -1, dtype=torch.int32, device=device)
+    cap = capacity.to(torch.int32).clone()
+    if p == 0 or n == 0:
+        return AssignResult(node_for_pod=node_for_pod, capacity_left=cap), 0
+    start_ok = eligible.bool() & (cap > 0)
+    counts = start_ok.sum(dim=1).tolist()
+    # stable sorts: score descending keeps equal scores in index order, then
+    # starting-ok lanes ahead of the rest
+    by_score = torch.sort(score, dim=1, descending=True, stable=True).indices
+    ok_first = torch.sort((~start_ok.gather(1, by_score)).to(torch.uint8), dim=1, stable=True)
+    lists = by_score.gather(1, ok_first.indices[:, : min(k, n)]).tolist()
+    lanes = torch.arange(n, dtype=torch.int64, device=device)
+    cap_host = cap.tolist()
+    rescans = 0
+    for pod in range(p):
+        taken = next((lane for lane in lists[pod][: counts[pod]] if cap_host[lane] > 0), None)
+        if taken is not None:
+            node_for_pod[pod] = taken
+            cap_host[taken] -= 1
+        elif counts[pod] > k:
+            rescans += 1
+            cap = torch.tensor(cap_host, dtype=torch.int32, device=device)
+            _assign_one(score[pod], eligible[pod].bool() & (cap > 0), lanes, pod, node_for_pod, cap)
+            cap_host = cap.tolist()
+    cap = torch.tensor(cap_host, dtype=torch.int32, device=device)
+    return AssignResult(node_for_pod=node_for_pod, capacity_left=cap), rescans
 
 
 def greedy_assign(

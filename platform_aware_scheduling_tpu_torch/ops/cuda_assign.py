@@ -3,14 +3,17 @@
 The kernel (``csrc/greedy_assign.cu``) replaces the TPU kernel
 ``platform_aware_scheduling_tpu/ops/pallas_assign.py:_kernel``; its source
 note gives the design and the bound.  This wrapper checks its inputs,
-allocates the outputs, launches on PyTorch's current stream and raises on
-a launch error.  Its plain counterpart is
-``ops/assign.greedy_assign_reference``.
+allocates the outputs and the stage-1 scratch (candidate lists [P, K] and
+counts [P]), launches the two stages on PyTorch's current stream and
+raises on the first launch error.  Its plain counterpart is
+``ops/assign.greedy_assign_reference``; ``greedy_assign_staged_reference``
+there models the two stages.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
@@ -27,16 +30,29 @@ def _library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = _build.load("greedy_assign")
-        lib.greedy_assign_launch.argtypes = [ctypes.c_void_p] * 5 + [
+        lib.greedy_assign_candidates_launch.argtypes = [ctypes.c_void_p] * 5 + [
             ctypes.c_int,
             ctypes.c_int,
             ctypes.c_void_p,
         ]
-        lib.greedy_assign_launch.restype = ctypes.c_int
+        lib.greedy_assign_candidates_launch.restype = ctypes.c_int
+        lib.greedy_assign_resolve_launch.argtypes = [ctypes.c_void_p] * 8 + [
+            ctypes.c_int,
+            ctypes.c_int,
+            ctypes.c_void_p,
+        ]
+        lib.greedy_assign_resolve_launch.restype = ctypes.c_int
         lib.greedy_assign_max_nodes.argtypes = [ctypes.c_int]
         lib.greedy_assign_max_nodes.restype = ctypes.c_int
+        lib.greedy_assign_list_size.argtypes = []
+        lib.greedy_assign_list_size.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def list_size() -> int:
+    """K, the length of each pod's candidate list in the kernel."""
+    return _library().greedy_assign_list_size()
 
 
 def max_nodes(device: torch.device) -> int:
@@ -56,7 +72,15 @@ def greedy_assign_cuda(
     capacity: torch.Tensor,  # int32 [N]
 ) -> AssignResult:
     """Exact greedy-in-order assignment by the CUDA kernel.  Counts each
-    launch in ``greedy_assign_cuda.LAUNCHES``."""
+    call, which launches both stages, in ``greedy_assign_cuda.LAUNCHES``."""
+    return greedy_assign_cuda_with_rescans(score, eligible, capacity)[0]
+
+
+def greedy_assign_cuda_with_rescans(
+    score: torch.Tensor, eligible: torch.Tensor, capacity: torch.Tensor
+) -> Tuple[AssignResult, torch.Tensor]:
+    """:func:`greedy_assign_cuda`, also returning the number of pods the
+    resolve stage rescanned (int32 [1] on the card)."""
     for label, tensor in (("score", score), ("eligible", eligible), ("capacity", capacity)):
         if tensor.device.type != "cuda":
             raise ValueError(f"greedy_assign_cuda: {label} is on {tensor.device}, not cuda")
@@ -81,12 +105,11 @@ def greedy_assign_cuda(
     if len({score.device, eligible.device, capacity.device}) != 1:
         raise ValueError("greedy_assign_cuda: inputs on different cards")
     device = score.device
-    node_for_pod = torch.empty(p, dtype=torch.int32, device=device)
-    capacity_left = torch.empty(n, dtype=torch.int32, device=device)
     if p == 0 or n == 0:
-        node_for_pod.fill_(-1)
-        capacity_left.copy_(capacity)
-        return AssignResult(node_for_pod=node_for_pod, capacity_left=capacity_left)
+        node_for_pod = torch.full((p,), -1, dtype=torch.int32, device=device)
+        capacity_left = capacity.clone()
+        rescans = torch.zeros(1, dtype=torch.int32, device=device)
+        return AssignResult(node_for_pod=node_for_pod, capacity_left=capacity_left), rescans
     if p >= 2**31:
         raise ValueError(f"greedy_assign_cuda: P={p} pods exceed int32")
     limit = max_nodes(device)
@@ -95,23 +118,77 @@ def greedy_assign_cuda(
             f"greedy_assign_cuda: N={n} nodes exceed the {limit} that fit one "
             "block's shared memory on this card"
         )
-    lib = _library()
+    lists, counts = launch_candidates(score, eligible, capacity)
+    result = launch_resolve(score, eligible, capacity, lists, counts)
+    greedy_assign_cuda.LAUNCHES += 1
+    return result
+
+
+def _raise_on(err: int, stage: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"greedy_assign {stage} kernel launch failed: cudaError {err}")
+
+
+def launch_candidates(
+    score: torch.Tensor, eligible: torch.Tensor, capacity: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stage 1 alone, on inputs :func:`greedy_assign_cuda` has checked:
+    each pod's best starting-ok lanes in rank order (int32 [P, K], the
+    first min(K, count) valid) and its count of starting-ok lanes (int32
+    [P]).  Not counted in ``LAUNCHES``; the timing in ``chip_smoke.py``
+    calls it on its own."""
+    p, n = score.shape
+    device = score.device
+    lists = torch.empty((p, list_size()), dtype=torch.int32, device=device)
+    counts = torch.empty(p, dtype=torch.int32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.greedy_assign_launch(
+        err = _library().greedy_assign_candidates_launch(
             score.data_ptr(),
             eligible.data_ptr(),
             capacity.data_ptr(),
-            node_for_pod.data_ptr(),
-            capacity_left.data_ptr(),
+            lists.data_ptr(),
+            counts.data_ptr(),
             p,
             n,
             stream,
         )
-    if err != 0:
-        raise RuntimeError(f"greedy_assign kernel launch failed: cudaError {err}")
-    greedy_assign_cuda.LAUNCHES += 1
-    return AssignResult(node_for_pod=node_for_pod, capacity_left=capacity_left)
+    _raise_on(err, "candidate")
+    return lists, counts
+
+
+def launch_resolve(
+    score: torch.Tensor,
+    eligible: torch.Tensor,
+    capacity: torch.Tensor,
+    lists: torch.Tensor,
+    counts: torch.Tensor,
+) -> Tuple[AssignResult, torch.Tensor]:
+    """Stage 2 alone, on checked inputs and stage 1's output: the result
+    and the number of rescanned pods (int32 [1]).  Not counted in
+    ``LAUNCHES``."""
+    p, n = score.shape
+    device = score.device
+    node_for_pod = torch.empty(p, dtype=torch.int32, device=device)
+    capacity_left = torch.empty(n, dtype=torch.int32, device=device)
+    rescans = torch.empty(1, dtype=torch.int32, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = _library().greedy_assign_resolve_launch(
+            score.data_ptr(),
+            eligible.data_ptr(),
+            capacity.data_ptr(),
+            lists.data_ptr(),
+            counts.data_ptr(),
+            node_for_pod.data_ptr(),
+            capacity_left.data_ptr(),
+            rescans.data_ptr(),
+            p,
+            n,
+            stream,
+        )
+    _raise_on(err, "resolve")
+    return AssignResult(node_for_pod=node_for_pod, capacity_left=capacity_left), rescans
 
 
 greedy_assign_cuda.LAUNCHES = 0

@@ -102,6 +102,100 @@ class TestGreedyReference:
         assert got.capacity_left.tolist() == [1] * n
 
 
+def _staged_case(name, rng):
+    """(score, eligible, capacity) for one named case of the staged model."""
+    if name.startswith("odd shape"):
+        p = int(rng.integers(1, 12)) * 2 + 1
+        n = int(rng.integers(1, 60)) * 2 + 1
+        score = rng.integers(-4, 4, size=(p, n)).astype(np.int64)  # many ties
+        return score, rng.random((p, n)) > 0.3, rng.integers(0, 3, size=n).astype(np.int32)
+    if name == "lists used up mid-way":
+        p, n = 45, 41
+        score = rng.integers(0, 3, size=(p, n)).astype(np.int64)
+        return score, rng.random((p, n)) > 0.1, np.ones(n, dtype=np.int32)
+    if name == "ties straddle the list boundary":
+        # each row: one lane of 9, then 40 lanes of 5, then lanes of 1, so
+        # a list of 1, 2 or 32 ends inside the run of equal scores
+        p, n = 45, 67
+        row = np.array([9] + [5] * 40 + [1] * (n - 41), dtype=np.int64)
+        score = np.stack([rng.permutation(row) for _ in range(p)])
+        return score, rng.random((p, n)) > 0.05, np.ones(n, dtype=np.int32)
+    if name == "rows with fewer ok lanes than the list":
+        p, n = 21, 37
+        eligible = np.zeros((p, n), dtype=bool)
+        for pod in range(p):
+            eligible[pod, rng.choice(n, size=pod % 4, replace=False)] = True
+        score = rng.integers(-(2**62), 2**62, size=(p, n)).astype(np.int64)
+        return score, eligible, rng.integers(0, 3, size=n).astype(np.int32)
+    if name == "INT64_MIN lanes":
+        p, n = 19, 35
+        score = rng.choice(np.array([INT64_MIN, INT64_MAX, 0, -1], dtype=np.int64), size=(p, n))
+        score[3, :] = INT64_MIN
+        return score, rng.random((p, n)) > 0.4, np.ones(n, dtype=np.int32)
+    if name == "zero capacities":
+        p, n = 23, 31
+        capacity = np.where(rng.random(n) < 0.7, 0, 2).astype(np.int32)
+        score = rng.integers(-9, 9, size=(p, n)).astype(np.int64)
+        return score, rng.random((p, n)) > 0.2, capacity
+    raise ValueError(name)
+
+
+STAGED_CASES = [
+    "odd shape 0",
+    "odd shape 1",
+    "odd shape 2",
+    "lists used up mid-way",
+    "ties straddle the list boundary",
+    "rows with fewer ok lanes than the list",
+    "INT64_MIN lanes",
+    "zero capacities",
+]
+
+
+class TestStagedReference:
+    """The plain model of the CUDA kernel's two stages (candidate lists of
+    length k, then the in-order resolve with rescans) is exact against the
+    plain loop, the JAX scan and the Pallas kernel in interpret mode."""
+
+    @pytest.mark.parametrize("k", [1, 2, 32])
+    @pytest.mark.parametrize("case", STAGED_CASES)
+    def test_equals_greedy(self, case, k):
+        rng = np.random.default_rng(STAGED_CASES.index(case))
+        score, eligible, capacity = _staged_case(case, rng)
+        want = _check(score, eligible, capacity)
+        got, rescans = assign.greedy_assign_staged_reference(
+            torch.from_numpy(score), torch.from_numpy(eligible), torch.from_numpy(capacity), k
+        )
+        assert torch.equal(got.node_for_pod, want.node_for_pod)
+        assert torch.equal(got.capacity_left, want.capacity_left)
+        assert 0 <= rescans <= score.shape[0]
+
+    @pytest.mark.parametrize("k, rescans", [(32, 468), (16, 484), (300, 0)])
+    def test_contention_rescans(self, k, rescans):
+        """500 pods, 300 nodes of capacity 1, equal scores: pod i takes node
+        i; every pod after the k-th finds its list used up and rescans,
+        unless the list holds the whole row."""
+        p, n = 500, 300
+        score = torch.zeros((p, n), dtype=torch.int64)
+        eligible = torch.ones((p, n), dtype=torch.bool)
+        capacity = torch.ones(n, dtype=torch.int32)
+        got, count = assign.greedy_assign_staged_reference(score, eligible, capacity, k)
+        want = assign.greedy_assign_reference(score, eligible, capacity)
+        assert torch.equal(got.node_for_pod, want.node_for_pod)
+        assert torch.equal(got.capacity_left, want.capacity_left)
+        assert got.node_for_pod.tolist() == list(range(n)) + [-1] * (p - n)
+        assert count == rescans
+
+    def test_list_length_must_be_positive(self):
+        with pytest.raises(ValueError, match="at least 1"):
+            assign.greedy_assign_staged_reference(
+                torch.zeros((1, 1), dtype=torch.int64),
+                torch.ones((1, 1), dtype=torch.bool),
+                torch.ones(1, dtype=torch.int32),
+                0,
+            )
+
+
 class TestDispatch:
     def test_cpu_takes_plain_version_without_the_builder(self, monkeypatch):
         def refuse(*_args, **_kwargs):
