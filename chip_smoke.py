@@ -9,9 +9,13 @@ kernel also against the plain model of its two stages, rescan count
 included), then drives the batch planner's main path at full size — 10,000
 nodes, 8 metrics, 4 TAS policies, 1,000 pending pods — through 5 sync
 periods, checking every plan against the same planner on the CPU and that
-each replan launched the kernel once.  Prints the card, the timings (the
-kernel's two stages and its rescans at the main path's inputs and three
-others), a ``{"kernels": [...]}`` line and, last,
+each replan launched the kernel once.  Then it serves the TAS verbs
+(Filter, Prioritize, Bind) from the port's ``Server`` on 127.0.0.1 over a
+CUDA-mirror extender steered by that planner, holds every response against
+a CPU-mirror extender and the host path, and times the verbs.  Prints the
+card, the timings (the kernel's two stages and its rescans at the main
+path's inputs and three others; the verbs' p50/p99 and warm passes), a
+``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
 result line, when there is no GPU, when the package is not beside this
 script, or when any phase fails.
@@ -19,6 +23,8 @@ script, or when any phase fails.
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import json
 import statistics
 import subprocess
@@ -257,29 +263,18 @@ def policies(rule):
     }
 
 
-def run_main_path(torch, np, device: str, on_replan=None) -> dict:
-    """Drive cache -> mirror -> planner at full size on ``device``, each
-    plan checked against the same planner on the CPU."""
-    from platform_aware_scheduling_tpu_torch.kube.objects import Node, Pod, object_key
-    from platform_aware_scheduling_tpu_torch.ops.state import TensorStateMirror
-    from platform_aware_scheduling_tpu_torch.tas.cache import AutoUpdatingCache
-    from platform_aware_scheduling_tpu_torch.tas.metrics import DummyMetricsClient, NodeMetric
-    from platform_aware_scheduling_tpu_torch.tas.planner import BatchPlanner
+def rule(metricname, operator, target):
+    return {"metricname": metricname, "operator": operator, "target": target}
+
+
+METRIC_NAMES = [f"metric{j}" for j in range(NUM_METRICS)]
+
+
+def write_policies(cache) -> None:
+    """The policies, then each metric's registration, as the policy
+    controller writes them."""
     from platform_aware_scheduling_tpu_torch.tas.policy.v1alpha1 import TASPolicy
-    from platform_aware_scheduling_tpu_torch.utils.quantity import Quantity
 
-    def rule(metricname, operator, target):
-        return {"metricname": metricname, "operator": operator, "target": target}
-
-    rng = np.random.default_rng(SEED)
-    setup_start = time.perf_counter()
-    cache = AutoUpdatingCache()
-    mirrors = {name: TensorStateMirror(device=dev) for name, dev in (("dut", device), ("cpu", "cpu"))}
-    for mirror in mirrors.values():
-        mirror.attach(cache)
-    planners = {
-        name: BatchPlanner(cache, mirror, device=mirror.device) for name, mirror in mirrors.items()
-    }
     for name, strategies in policies(rule).items():
         obj = {
             "metadata": {"name": name, "namespace": "default"},
@@ -291,9 +286,33 @@ def run_main_path(torch, np, device: str, on_replan=None) -> dict:
             },
         }
         cache.write_policy("default", name, TASPolicy.from_obj(obj))
-    metric_names = [f"metric{j}" for j in range(NUM_METRICS)]
-    for metric in metric_names:
-        cache.write_metric(metric)  # registration, as the policy controller does
+    for metric in METRIC_NAMES:
+        cache.write_metric(metric)
+
+
+def run_main_path(torch, np, device: str, on_replan=None) -> dict:
+    """Drive cache -> mirror -> planner at full size on ``device``, each
+    plan checked against the same planner on the CPU.  The returned world
+    (cache, mirrors, planners, metrics client, ``refresh``) carries on
+    into the verbs phase."""
+    from platform_aware_scheduling_tpu_torch.kube.objects import Node, Pod, object_key
+    from platform_aware_scheduling_tpu_torch.ops.state import TensorStateMirror
+    from platform_aware_scheduling_tpu_torch.tas.cache import AutoUpdatingCache
+    from platform_aware_scheduling_tpu_torch.tas.metrics import DummyMetricsClient, NodeMetric
+    from platform_aware_scheduling_tpu_torch.tas.planner import BatchPlanner
+    from platform_aware_scheduling_tpu_torch.utils.quantity import Quantity
+
+    rng = np.random.default_rng(SEED)
+    setup_start = time.perf_counter()
+    cache = AutoUpdatingCache()
+    mirrors = {name: TensorStateMirror(device=dev) for name, dev in (("dut", device), ("cpu", "cpu"))}
+    for mirror in mirrors.values():
+        mirror.attach(cache)
+    planners = {
+        name: BatchPlanner(cache, mirror, device=mirror.device) for name, mirror in mirrors.items()
+    }
+    write_policies(cache)
+    metric_names = METRIC_NAMES
 
     nodes = [f"node-{i:05d}" for i in range(NUM_NODES)]
     order = rng.permutation(NUM_NODES)
@@ -391,6 +410,14 @@ def run_main_path(torch, np, device: str, on_replan=None) -> dict:
     inputs = planners["dut"].solve_inputs()
     _violating, score, eligible = score_and_filter(inputs.state, inputs.pods)
     return {
+        "cache": cache,
+        "mirrors": mirrors,
+        "planners": planners,
+        "client": client,
+        "refresh": refresh,
+        "values": values,
+        "nodes": nodes,
+        "pending": pending,
         "planner": planners["dut"],
         "kernel_inputs": (score, eligible, inputs.state.capacity),
         "setup_s": setup_s,
@@ -483,6 +510,364 @@ def replan_breakdown(torch, planner, repeats: int = 5) -> dict:
     return result
 
 
+# -- phase 6: the TAS verbs over a socket ---------------------------------------------
+
+SCORING_FUNCTIONS = ("ordinal_scores", "prioritize", "batch_prioritize", "filter", "filter_explain")
+TIMED_REQUESTS = 200
+SUBSET = 1_000
+
+
+def expected_warm_calls() -> dict:
+    """The scoring calls the extender's warm passes must make in one
+    refresh that moves every metric's row: each metric write is one state
+    version, and its pass runs one batched ranking when a policy ranks on
+    that metric and one filter_explain per policy with a dontschedule rule
+    on it."""
+    pols = policies(rule).values()
+    batched = sum(
+        any(p["scheduleonmetric"][0]["metricname"] == metric for p in pols) for metric in METRIC_NAMES
+    )
+    explains = sum(
+        any(r["metricname"] == metric for r in p["dontschedule"])
+        for metric in METRIC_NAMES
+        for p in pols
+    )
+    return {
+        "ordinal_scores": batched,
+        "prioritize": 0,
+        "batch_prioritize": batched,
+        "filter": 0,
+        "filter_explain": explains,
+    }
+
+
+def args_body(pod: str, policy, names=None, node_objs=None) -> bytes:
+    labels = {"telemetry-policy": policy} if policy else {}
+    body = {"Pod": {"metadata": {"name": pod, "namespace": "default", "labels": labels}}}
+    if node_objs is not None:
+        body["Nodes"] = {"items": node_objs}
+    else:
+        body["NodeNames"] = names
+    return json.dumps(body).encode()
+
+
+def percentile(values, q: float) -> float:
+    ordered = sorted(values)
+    return ordered[min(len(ordered) - 1, int(round(q * (len(ordered) - 1))))]
+
+
+@contextlib.contextmanager
+def full_collections():
+    """The interpreter's full (generation 2) collections inside the block,
+    in ms: one holds the GIL, so it stalls warm passes and requests alike."""
+    pauses, started = [], []
+
+    def on_gc(phase, info):
+        if info["generation"] != 2:
+            return
+        if phase == "start":
+            started.append(time.perf_counter())
+        elif started:
+            pauses.append((time.perf_counter() - started.pop()) * 1e3)
+
+    gc.callbacks.append(on_gc)
+    try:
+        yield pauses
+    finally:
+        gc.callbacks.remove(on_gc)
+
+
+def run_verbs(torch, np, world: dict, device: str) -> dict:
+    """Serve Filter, Prioritize and Bind from the port's ``Server`` over a
+    CUDA-mirror ``MetricsExtender`` with the main path's planner, on
+    127.0.0.1 at the main path's 10,000 nodes.  Every response over the
+    socket is held against the same extender over a CPU mirror, and
+    Filter (and Prioritize where ties cannot reorder) against the host
+    path; then the verbs are timed."""
+    import http.client
+
+    from platform_aware_scheduling_tpu_torch.extender.server import HTTPRequest, Server
+    from platform_aware_scheduling_tpu_torch.ops import scoring
+    from platform_aware_scheduling_tpu_torch.ops.cuda_assign import greedy_assign_cuda
+    from platform_aware_scheduling_tpu_torch.ops.state import TensorStateMirror
+    from platform_aware_scheduling_tpu_torch.tas.cache import AutoUpdatingCache
+    from platform_aware_scheduling_tpu_torch.tas.telemetryscheduler import MetricsExtender
+    from platform_aware_scheduling_tpu_torch.utils import trace
+
+    rng = np.random.default_rng(SEED + 1)
+    cache, client, planner = world["cache"], world["client"], world["planners"]["dut"]
+    cpu_planner, mirror = world["planners"]["cpu"], world["mirrors"]["dut"]
+    nodes, values = world["nodes"], world["values"]
+    check(mirror.device.type == device, f"the verbs' mirror is not on {device}")
+    ext = MetricsExtender(cache, mirror=mirror, planner=planner, node_cache_capable=True)
+    # the controls see the same cache writes through a cache of their own,
+    # so the scoring counters below count the CUDA extender's calls alone
+    control_cache = AutoUpdatingCache()
+    control_mirror = TensorStateMirror(device="cpu")
+    control_mirror.attach(control_cache)
+    write_policies(control_cache)
+    control_cache.update_all_metrics(client)
+    controls = {
+        "cpu mirror": Server(
+            MetricsExtender(control_cache, mirror=control_mirror, planner=cpu_planner, node_cache_capable=True)
+        ),
+        "host": Server(MetricsExtender(control_cache, planner=cpu_planner, node_cache_capable=True)),
+    }
+    server = Server(ext, metrics_provider=ext.metrics_text)
+    server.start_server(port="0", unsafe=True, host="127.0.0.1", block=False)
+    check(server.wait_ready(), "the extender server did not start")
+    conn = http.client.HTTPConnection("127.0.0.1", server.port, timeout=120)
+
+    def send(method, path, body=b"", content_type="application/json"):
+        headers = {"Content-Type": content_type} if content_type else {}
+        start = time.perf_counter()
+        conn.request(method, path, body=body, headers=headers)
+        resp = conn.getresponse()
+        data = resp.read()
+        return resp.status, data, time.perf_counter() - start
+
+    try:
+        # open the connection and the server's handler thread before the
+        # refresh, so the first request after it times the verb alone
+        first_body = args_body("first-after-refresh", "pol-0", names=nodes)
+        check(send("POST", "/scheduler/prioritize", first_body)[0] == 200, "verbs: warm-up failed")
+        # two churned refreshes, each warm pass timed where it runs: the
+        # first after the planner phase, the second in steady state
+        hooks = mirror.on_state_change
+        index = hooks.index(ext.warm_fastpath)
+        refreshes = []
+        greedy_assign_cuda.LAUNCHES = 0
+        for _round in range(2):
+            warm_s = []
+
+            def timed_warm(warm_s=warm_s):
+                start = time.perf_counter()
+                ext.warm_fastpath()
+                warm_s.append(time.perf_counter() - start)
+
+            hooks[index] = timed_warm
+            for name in SCORING_FUNCTIONS:
+                getattr(scoring, name).CALLS = 0
+            with full_collections() as pauses:
+                start = time.perf_counter()
+                world["refresh"]()
+                refresh_s = time.perf_counter() - start
+            hooks[index] = ext.warm_fastpath
+            calls = {name: getattr(scoring, name).CALLS for name in SCORING_FUNCTIONS}
+            check(
+                calls == expected_warm_calls(),
+                f"verbs: scoring calls {calls}, expected {expected_warm_calls()}",
+            )
+            refreshes.append(
+                {"warm_ms": [t * 1e3 for t in warm_s], "refresh_ms": refresh_s * 1e3, "gc_ms": pauses}
+            )
+        planned_count = planner.replan()
+        launches = greedy_assign_cuda.LAUNCHES
+        status, _data, first_s = send("POST", "/scheduler/prioritize", first_body)
+        check(status == 200, f"verbs: first Prioritize after the refresh answered {status}")
+        check(
+            {name: getattr(scoring, name).CALLS for name in SCORING_FUNCTIONS} == calls,
+            "verbs: a request ran a scoring function",
+        )
+        if device == "cuda":
+            check(launches == 1, f"verbs: greedy_assign launched {launches} times in the verbs' replan")
+        check(cpu_planner.replan() == planned_count, "verbs: the CPU planner planned another count")
+        check(
+            all(planner.planned_node(p) == cpu_planner.planned_node(p) for p in world["pending"]),
+            "verbs: the plan differs from the CPU planner's",
+        )
+        control_cache.update_all_metrics(client)
+
+        # -- the request mix ----------------------------------------------------
+        by_policy = {}
+        for pod in world["pending"]:
+            node = planner.planned_node(pod)
+            if node is not None:
+                by_policy.setdefault(pod.get_labels()["telemetry-policy"], []).append((pod.name, node))
+        # a 1000-name subset that holds each policy's second planned node
+        held = {plans[1][1] for plans in by_policy.values()}
+        others = [n for n in nodes if n not in held]
+        subset = list(held) + [others[i] for i in rng.choice(len(others), SUBSET - len(held), replace=False)]
+        subset = [subset[i] for i in rng.permutation(len(subset))]
+        node_objs = [
+            {"metadata": {"name": n, "labels": {"zone": f"zone-{i % 3}"}},
+             "status": {"allocatable": {"pods": str(ALLOCATABLE_PODS)}}}
+            for i, n in enumerate(subset)
+        ]
+        mix = []  # (verb, label, body, host path equal?, planned node or None)
+        for k in range(4):
+            policy = f"pol-{k}"
+            (pod_a, node_a), (pod_b, node_b) = by_policy[policy][:2]
+            metric = values[k]  # each policy ranks on metric k
+            _vals, first = np.unique(metric, return_index=True)
+            distinct = [nodes[i] for i in rng.permutation(first)[:SUBSET]]
+            mix += [
+                # node order: ties break alike on the device and host paths
+                ("prioritize", f"{policy} NodeNames 10000", args_body(pod_a, policy, nodes), True, node_a),
+                ("filter", f"{policy} NodeNames 10000", args_body(pod_a, policy, nodes), True, None),
+                ("prioritize", f"{policy} NodeNames 1000", args_body(pod_b, policy, subset), False,
+                 node_b if node_b in subset else None),
+                ("filter", f"{policy} NodeNames 1000", args_body(pod_b, policy, subset), True, None),
+                ("prioritize", f"{policy} distinct values 1000", args_body(pod_a, policy, distinct), True,
+                 node_a if node_a in distinct else None),
+                ("prioritize", f"{policy} Nodes 1000", args_body(f"probe-{k}", policy, node_objs=node_objs),
+                 False, None),
+                ("filter", f"{policy} Nodes 1000", args_body(f"probe-{k}", policy, node_objs=node_objs),
+                 True, None),
+            ]
+        for verb in ("prioritize", "filter"):
+            mix += [
+                (verb, "empty body", b"", True, None),
+                (verb, "no policy label", args_body("quirk", None, subset), True, None),
+                (verb, "unknown policy", args_body("quirk", "pol-x", subset), True, None),
+            ]
+        pod_a, node_a = by_policy["pol-0"][0]
+        bind = {"PodName": pod_a, "PodNamespace": "default", "PodUID": "u", "Node": node_a}
+        mix.append(("bind", "bind", json.dumps(bind).encode(), True, None))
+
+        promoted = host_checked = 0
+        for verb, label, body, host_equal, planned in mix:
+            status, data, _s = send("POST", f"/scheduler/{verb}", body)
+            for control, control_server in controls.items():
+                if control == "host" and not host_equal:
+                    continue
+                want = control_server.route(
+                    HTTPRequest("POST", f"/scheduler/{verb}", {"Content-Type": "application/json"}, body)
+                )
+                check(
+                    (status, data) == (want.status, want.body),
+                    f"verbs {verb} {label}: the CUDA extender differs from the {control} control",
+                )
+                host_checked += control == "host"
+            if planned is not None:
+                check(
+                    json.loads(data)[0] == {"Host": planned, "Score": 10},
+                    f"verbs {verb} {label}: the planned node {planned} is not ranked first",
+                )
+                promoted += 1
+        check(promoted >= 8, f"verbs: only {promoted} planned pods checked")
+        status, data, _s = send("GET", "/readyz", content_type=None)
+        check(status == 200, f"verbs: /readyz answered {status}: {data[:200]!r}")
+        check(ext.readiness_conditions()[0][1]() == (True, "fastpath warmed"), "verbs: not warmed")
+
+        # -- timing over the socket -----------------------------------------------
+        timed = {}
+        stages = {}
+        for verb in ("filter", "prioritize"):
+            bodies = [
+                args_body(pod, f"pol-{k}", nodes)
+                for k in range(4)
+                for pod, _node in by_policy[f"pol-{k}"][:2]
+            ]
+            for body in bodies:  # warm-up
+                send("POST", f"/scheduler/{verb}", body)
+            trace.TRACES.clear()
+            times = []
+            with full_collections() as pauses:
+                for i in range(TIMED_REQUESTS):
+                    status, _data, seconds = send("POST", f"/scheduler/{verb}", bodies[i % len(bodies)])
+                    check(status == 200, f"verbs: timed {verb} answered {status}")
+                    times.append(seconds * 1e3)
+            spans = trace.TRACES.snapshot(verb=verb)["recent"]
+            check(len(spans) == TIMED_REQUESTS, f"verbs: {len(spans)} {verb} spans recorded")
+            if verb == "prioritize":
+                paths = {span["attrs"].get("path") for span in spans}
+                check(paths == {"device"}, f"verbs: timed Prioritize spans took paths {paths}")
+            timed[verb] = {
+                "p50_ms": statistics.median(times),
+                "p99_ms": percentile(times, 0.99),
+                "n": len(times),
+                "gc_ms": pauses,
+            }
+            per_stage = {}
+            for span in spans:
+                for stage in span["stages"]:
+                    per_stage.setdefault(stage["name"], []).append(stage["duration_ms"])
+            stages[verb] = {name: statistics.median(ms) for name, ms in per_stage.items()}
+        fallbacks = trace.COUNTERS.get("pas_prioritize_host_fallback_total")
+        check(fallbacks == 0, f"verbs: {fallbacks} Prioritize host fallbacks")
+
+        # device time of the warm pass's scoring calls at the mirror's shape
+        policies_now, view, _host_only = mirror.policies_snapshot()
+        pairs = sorted({(c.scheduleonmetric_row, c.scheduleonmetric_op) for c in policies_now.values()})
+        rank_ms = explain_ms = None
+        if device == "cuda":
+            rows = torch.tensor([r for r, _ in pairs], dtype=torch.int32, device=device)
+            ops = torch.tensor([o for _, o in pairs], dtype=torch.int32, device=device)
+            everywhere = torch.ones((len(pairs), view.node_capacity), dtype=torch.bool, device=device)
+            rank_ms = cuda_ms(
+                torch,
+                lambda: scoring.batch_prioritize(view.values, view.present, rows, ops, everywhere),
+                20,
+            )
+            explain_ms = sum(
+                cuda_ms(
+                    torch,
+                    lambda c=c: scoring.filter_explain(
+                        view.values, view.present, c.device_rules("dontschedule"), everywhere[0]
+                    ),
+                    20,
+                )
+                for c in policies_now.values()
+            )
+    finally:
+        conn.close()
+        server.shutdown()
+    return {
+        "timed": timed,
+        "stages": stages,
+        "refreshes": refreshes,
+        "first_ms": first_s * 1e3,
+        "calls": calls,
+        "launches": launches,
+        "requests": len(mix),
+        "host_checked": host_checked,
+        "promoted": promoted,
+        "rank_ms": rank_ms,
+        "rank_shape": [len(pairs), view.node_capacity],
+        "explain_ms": explain_ms,
+        "explain_policies": len(policies_now),
+    }
+
+
+def verbs_line(verbs: dict, card: str) -> str:
+    f, p = verbs["timed"]["filter"], verbs["timed"]["prioritize"]
+    calls = verbs["calls"]
+    refreshes = "; ".join(
+        f"{name} refresh {r['refresh_ms']:.3f} ms, its passes {sum(r['warm_ms']):.3f} ms "
+        f"({', '.join(f'{t:.3f}' for t in r['warm_ms'])}), {len(r['gc_ms'])} full collections "
+        f"{sum(r['gc_ms']):.3f} ms"
+        for name, r in zip(("first", "second"), verbs["refreshes"])
+    )
+    return (
+        f"verbs {NUM_NODES} nodes, NodeNames mode over a socket: filter p50 {f['p50_ms']:.3f} ms "
+        f"p99 {f['p99_ms']:.3f} ms (n={f['n']}), prioritize p50 {p['p50_ms']:.3f} ms "
+        f"p99 {p['p99_ms']:.3f} ms (n={p['n']}); warm passes per churned refresh "
+        f"({calls['batch_prioritize']} batched rankings, {calls['filter_explain']} filter_explain): "
+        f"{refreshes}; first request after the refresh {verbs['first_ms']:.3f} ms; "
+        f"{verbs['requests']} requests equal to the CPU-mirror control, {verbs['host_checked']} to "
+        f"the host path, {verbs['promoted']} planned pods promoted, 0 host fallbacks [{card}]"
+    )
+
+
+def verbs_breakdown_line(verbs: dict, card: str) -> str:
+    parts = []
+    for verb, stages in verbs["stages"].items():
+        pauses = verbs["timed"][verb]["gc_ms"]
+        parts.append(
+            f"{verb} " + ", ".join(f"{name} {ms:.3f}" for name, ms in stages.items())
+            + f" ({len(pauses)} full collections in the timed run, {sum(pauses):.3f} ms)"
+        )
+    device = ""
+    if verbs["rank_ms"] is not None:
+        k, n = verbs["rank_shape"]
+        device = (
+            f"; device: batch_prioritize {k}x{n} {verbs['rank_ms']:.4f} ms, filter_explain "
+            f"x{verbs['explain_policies']} {verbs['explain_ms']:.4f} ms"
+        )
+    return f"verbs stages (span medians, ms): {'; '.join(parts)}{device} [{card}]"
+
+
 def main() -> int:
     if not (ROOT / PACKAGE / "__init__.py").is_file():
         print(f"chip_smoke: {PACKAGE}/ is not beside this script", file=sys.stderr)
@@ -561,6 +946,10 @@ def main() -> int:
             f"{t['dense_bound_ms']:.4f} ms); no single PyTorch call computes this function [{card}]"
         )
 
+    verbs = run_verbs(torch, np, main_path, "cuda")
+    print(verbs_line(verbs, card))
+    print(verbs_breakdown_line(verbs, card))
+
     kernels = [
         {
             "name": "greedy_assign",
@@ -579,6 +968,7 @@ def main() -> int:
             "candidates_ms": main_times["candidates_ms"],
             "resolve_ms": main_times["resolve_ms"],
             "rescans": main_times["rescans"],
+            "verbs_launches": verbs["launches"],
         }
     ]
     print(json.dumps({"kernels": kernels}))

@@ -12,13 +12,19 @@ node.
 Fidelity: a value is stored as exact milli-units when the ``Quantity``
 converts exactly; an inexact value marks its metric host-only, and an
 unknown operator or out-of-range target marks its rule set host-only.  The
-planner skips both, as the JAX planner does.
+planner skips both, and the extender serves them on its exact host path,
+as the JAX package does.
+
+Every publish that changes the snapshot or the compiled-policy set runs
+the ``on_state_change`` callbacks after the lock is released: the
+extender's warm pass subscribes there, so the device ranking runs in the
+state-refresh thread, never on a request.
 """
 
 from __future__ import annotations
 
 import threading
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -26,6 +32,7 @@ import torch
 
 from platform_aware_scheduling_tpu_torch.ops.rules import OP_IDS, RuleSet
 from platform_aware_scheduling_tpu_torch.tas.policy.v1alpha1 import TASPolicy
+from platform_aware_scheduling_tpu_torch.utils import klog
 from platform_aware_scheduling_tpu_torch.utils.device import DeviceLike, resolve_device
 
 MIN_NODE_CAPACITY = 64
@@ -62,7 +69,8 @@ class CompiledRuleSet:
 
 @dataclass
 class CompiledPolicy:
-    """Compiled view of one TASPolicy's strategies."""
+    """Compiled view of one TASPolicy's strategies, with its rule tensors
+    on ``device`` once asked for."""
 
     dontschedule: Optional[CompiledRuleSet] = None
     deschedule: Optional[CompiledRuleSet] = None
@@ -71,12 +79,37 @@ class CompiledPolicy:
     scheduleonmetric_row: int = -1
     scheduleonmetric_op: int = -1
     scheduleonmetric_metric: str = ""
+    device: torch.device = torch.device("cpu")
+    _device_cache: Dict[str, RuleSet] = field(default_factory=dict, repr=False, compare=False)
+
+    def device_rules(self, strategy: str) -> Optional[RuleSet]:
+        """The strategy's rule set on ``device`` (uploaded once), or None
+        when the policy lacks it or it is host-only."""
+        compiled = getattr(self, strategy, None)
+        if compiled is None or compiled.host_only:
+            return None
+        if strategy not in self._device_cache:
+            self._device_cache[strategy] = compiled.to_device(self.device)
+        return self._device_cache[strategy]
 
 
 class DeviceView:
-    """An immutable snapshot handed to the solve: the int64 metric matrix
-    and the presence mask on the mirror's device, plus the interning
-    tables they were built against."""
+    """An immutable snapshot handed to the scoring code: the int64 metric
+    matrix and the presence mask on the mirror's device, plus the
+    interning tables they were built against.
+
+    Besides the global ``version`` it carries finer change counters, so
+    per-version caches drop only what changed:
+
+      * ``row_versions[r]`` moves only when metric row ``r``'s content
+        changes — a ranking of (row, op) survives other rows' updates;
+      * ``intern_version`` moves only when the node interning changes —
+        the response-fragment table survives pure value churn.
+
+    ``values_milli`` is a host copy of the matrix, so violation reasons
+    ("metric cpu=93 > threshold 80") are formatted without a device
+    readback.
+    """
 
     def __init__(
         self,
@@ -85,12 +118,21 @@ class DeviceView:
         node_names: List[str],
         node_index: Dict[str, int],
         version: int,
+        row_versions: Tuple[int, ...] = (),
+        intern_version: int = 0,
+        values_milli: Optional[np.ndarray] = None,
     ):
         self.values = values
         self.present = present
         self.node_names = node_names
         self.node_index = node_index
         self.version = version
+        self.row_versions = row_versions
+        self.intern_version = intern_version
+        self.values_milli = values_milli
+
+    def row_version(self, row: int) -> int:
+        return self.row_versions[row] if row < len(self.row_versions) else 0
 
     @property
     def node_capacity(self) -> int:
@@ -115,6 +157,9 @@ class TensorStateMirror:
         self._free_metric_rows: List[int] = []
         self._values = np.zeros((metric_capacity, node_capacity), dtype=np.int64)
         self._present = np.zeros((metric_capacity, node_capacity), dtype=bool)
+        # fine-grained change counters (see DeviceView)
+        self._row_versions: Dict[int, int] = {}
+        self._intern_version = 0
         self._host_only_metrics: Dict[str, bool] = {}
         self._policies: Dict[Tuple[str, str], CompiledPolicy] = {}
         # sources kept so policies can be recompiled when a freed metric row
@@ -124,6 +169,8 @@ class TensorStateMirror:
         # must not force a metric-matrix re-upload
         self._version = 0
         self._view: Optional[DeviceView] = None
+        # post-publish callbacks, run outside the lock (see module doc)
+        self.on_state_change: List = []
 
     # -- wiring ---------------------------------------------------------------
 
@@ -148,6 +195,7 @@ class TensorStateMirror:
             self._present = np.pad(self._present, grow)
         self._node_index[name] = col
         self._node_names.append(name)
+        self._intern_version += 1
         return col
 
     def _intern_metric(self, name: str) -> int:
@@ -166,20 +214,38 @@ class TensorStateMirror:
         self._metric_index[name] = row
         self._values[row, :] = 0
         self._present[row, :] = False
+        self._bump_row(row)
         return row
 
+    def _bump_row(self, row: int) -> None:
+        self._row_versions[row] = self._row_versions.get(row, 0) + 1
+
     # -- cache hooks ----------------------------------------------------------
+
+    def _notify(self) -> None:
+        """Run the post-publish callbacks; a failing subscriber never
+        breaks the writer (the refresh loop must keep ticking)."""
+        for callback in list(self.on_state_change):
+            try:
+                callback()
+            except Exception as exc:  # noqa: BLE001 — subscriber errors are theirs
+                klog.error("state-change subscriber failed: %r", exc)
 
     def on_metric_write(self, metric_name: str, info) -> None:
         """info: NodeMetricsInfo (node -> NodeMetric) or None (registration
         only)."""
+        if self._metric_write_locked(metric_name, info):
+            self._notify()
+
+    def _metric_write_locked(self, metric_name: str, info) -> bool:
         with self._lock:
             shape_before = self._values.shape
             row = self._intern_metric(metric_name)
             if info is None:
                 if self._values.shape != shape_before:
                     self._version += 1
-                return
+                    return True
+                return False
             # stage the new row, then bump the version only on real change:
             # the periodic refresh rewrites every metric each sync period and
             # steady-state values must not invalidate plans
@@ -201,14 +267,17 @@ class TensorStateMirror:
                 )
                 new_present[cols] = True
             self._host_only_metrics[metric_name] = host_only
-            if (
+            changed = (
                 grew
                 or not np.array_equal(self._present[row], new_present)
                 or not np.array_equal(self._values[row], new_values)
-            ):
+            )
+            if changed:
                 self._values[row] = new_values
                 self._present[row] = new_present
                 self._version += 1
+                self._bump_row(row)
+            return changed
 
     def on_metric_delete(self, metric_name: str) -> None:
         with self._lock:
@@ -219,11 +288,13 @@ class TensorStateMirror:
             self._present[row, :] = False
             self._free_metric_rows.append(row)
             self._version += 1
+            self._bump_row(row)
             # compiled rule arrays may reference the freed row; if it is
             # later reused for another metric they would read the wrong
             # values — recompile every policy against live rows
             for key, source in self._policy_sources.items():
                 self._policies[key] = self._compile_policy(source)
+        self._notify()
 
     def on_policy_write(self, namespace: str, name: str, policy: TASPolicy) -> None:
         with self._lock:
@@ -232,6 +303,9 @@ class TensorStateMirror:
             self._policies[(namespace, name)] = self._compile_policy(policy)
             if self._values.shape != shape_before:  # a rule interned a new metric
                 self._version += 1
+        # fire even without a version bump: a new policy can bring (metric
+        # row, op) pairs that need warming at the current version
+        self._notify()
 
     def on_policy_delete(self, namespace: str, name: str) -> None:
         with self._lock:
@@ -270,7 +344,7 @@ class TensorStateMirror:
         )
 
     def _compile_policy(self, policy: TASPolicy) -> CompiledPolicy:
-        compiled = CompiledPolicy()
+        compiled = CompiledPolicy(device=self.device)
         strategies = policy.strategies
         if "dontschedule" in strategies:
             compiled.dontschedule = self._compile_rules(strategies["dontschedule"].rules)
@@ -320,19 +394,44 @@ class TensorStateMirror:
             )
             return policies, self._view_locked(), host_only
 
+    def policies_snapshot(
+        self,
+    ) -> Tuple[Dict[Tuple[str, str], CompiledPolicy], DeviceView, Dict[str, bool]]:
+        """Atomic ({(ns, name): policy}, view, host-only metric map) under
+        one lock acquisition — for the warm pass, which must see a policy
+        set consistent with the view it ranks against."""
+        with self._lock:
+            return dict(self._policies), self._view_locked(), dict(self._host_only_metrics)
+
+    def policy_with_view(
+        self, namespace: str, name: str
+    ) -> Tuple[Optional[CompiledPolicy], DeviceView]:
+        """Atomic (compiled policy, snapshot) pair: the policy's rule arrays
+        hold metric ROW indices, so reading them and the matrix in two
+        steps could straddle a metric-row reuse."""
+        with self._lock:
+            return self._policies.get((namespace, name)), self._view_locked()
+
     def _view_locked(self) -> DeviceView:
         if self._view is not None and self._view.version == self._version:
             return self._view
-        values = torch.from_numpy(self._values.copy()).to(self.device)
+        # the host copy and the tensor are both read-only snapshots, so on
+        # the CPU they may share memory
+        values_milli = self._values.copy()
+        values = torch.from_numpy(values_milli).to(self.device)
         present = torch.from_numpy(self._present.copy()).to(self.device)
         if self.device.type == "cuda":
             # the upload must have landed before any reader sees the view
             torch.cuda.current_stream(self.device).synchronize()
+        rows = self._values.shape[0]
         self._view = DeviceView(
             values=values,
             present=present,
             node_names=list(self._node_names),
             node_index=dict(self._node_index),
             version=self._version,
+            row_versions=tuple(self._row_versions.get(r, 0) for r in range(rows)),
+            intern_version=self._intern_version,
+            values_milli=values_milli,
         )
         return self._view

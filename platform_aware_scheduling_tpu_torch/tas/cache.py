@@ -8,14 +8,18 @@ and ``update_all_metrics`` re-fetching every registered metric each sync
 period.  Mutation hooks let the tensor mirror (``ops/state.py``) follow
 changes without polling.
 
-Refresh-history rings and the freshness bookkeeping of the JAX cache come
-in a later slice with the forecast and readiness layers.
+Freshness bookkeeping (when each metric last carried data, when the last
+refresh pass ended, the refresh period) feeds the ``/readyz``
+``telemetry_fresh`` condition and the ``pas_telemetry_metric_age_seconds``
+gauges.  The JAX cache's refresh-history rings come with the forecast
+layer.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Any, Callable, Dict, List, Optional
+import time
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from platform_aware_scheduling_tpu_torch.tas.metrics import Client, NodeMetricsInfo
 from platform_aware_scheduling_tpu_torch.tas.policy.v1alpha1 import TASPolicy
@@ -78,11 +82,23 @@ class _SerializedStore:
 class AutoUpdatingCache:
     """Reader/Writer/SelfUpdating cache."""
 
-    def __init__(self, counters: Optional[CounterSet] = None):
+    def __init__(
+        self,
+        counters: Optional[CounterSet] = None,
+        clock: Callable[[], float] = time.monotonic,
+    ):
         self._store = _SerializedStore()
         self._metric_refcounts: Dict[str, int] = {}
         self._mtx = threading.Lock()
         self.counters = counters if counters is not None else CounterSet()
+        # freshness bookkeeping, on an injectable monotonic clock
+        self._clock = clock
+        self._last_refresh: Dict[str, float] = {}  # metric -> stamp
+        self._last_pass: Optional[float] = None
+        self._refresh_period: Optional[float] = None
+        self._synced_once = threading.Event()
+        #: freshness bound override (seconds); None = 3x the refresh period
+        self.freshness_max_age_s: Optional[float] = None
         # held across store mutation + hook delivery so mirror subscribers
         # observe mutations in store order
         self._mutation_lock = threading.RLock()
@@ -126,6 +142,12 @@ class AutoUpdatingCache:
                     self._metric_refcounts[metric_name] = (
                         self._metric_refcounts.get(metric_name, 0) + 1
                     )
+            else:
+                # a data-bearing write IS a refresh: the clock this metric's
+                # freshness is judged by
+                stamp = self._clock()
+                with self._mtx:
+                    self._last_refresh[metric_name] = stamp
             for hook in self.on_metric_write:
                 hook(metric_name, payload)
 
@@ -149,12 +171,19 @@ class AutoUpdatingCache:
                 if total == 1:
                     del self._metric_refcounts[metric_name]
                     self._store.delete(METRIC_PATH.format(metric_name))
+                    self._last_refresh.pop(metric_name, None)
                     evicted = True
                 elif total is not None:
                     self._metric_refcounts[metric_name] = total - 1
                 else:
                     self._metric_refcounts[metric_name] = -1
             if evicted:
+                # the age gauge must not stay frozen for a metric that is gone
+                self.counters.remove(
+                    "pas_telemetry_metric_age_seconds",
+                    labels={"metric": metric_name},
+                    kind="gauge",
+                )
                 for hook in self.on_metric_delete:
                     hook(metric_name)
 
@@ -181,11 +210,77 @@ class AutoUpdatingCache:
                 reason = _refresh_error_reason(exc)
                 errors[reason] = errors.get(reason, 0) + 1
                 klog.v(2).info_s(str(exc), component="controller")
+        # a failed fetch keeps the last-known-good value while the metric
+        # keeps AGING (its stamp is untouched), so staleness stays visible
+        now = self._clock()
+        with self._mtx:
+            self._last_pass = now
+            ages = {
+                name: now - stamp
+                for name, stamp in self._last_refresh.items()
+                if name in self._metric_refcounts
+            }
+        self._synced_once.set()
         self.counters.inc("pas_telemetry_refresh_total")
         for reason, count in errors.items():
             self.counters.inc(
                 "pas_telemetry_refresh_errors_total", count, labels={"reason": reason}
             )
+        for name, age in ages.items():
+            self.counters.set_gauge(
+                "pas_telemetry_metric_age_seconds", round(age, 6), labels={"metric": name}
+            )
+
+    # -- freshness --------------------------------------------------------------
+
+    def metric_ages(self) -> Dict[str, Optional[float]]:
+        """Registered metric -> seconds since its last data-bearing write
+        (None = never refreshed)."""
+        now = self._clock()
+        with self._mtx:
+            return {
+                name: (now - self._last_refresh[name] if name in self._last_refresh else None)
+                for name in self._metric_refcounts
+                if name
+            }
+
+    def telemetry_freshness(self) -> Tuple[bool, str]:
+        """The /readyz ``telemetry_fresh`` condition: ok for a cache with
+        no refresh loop (a static seed), else once a refresh pass has
+        completed, the last pass is recent and every registered metric's
+        age is within :meth:`freshness_bound`."""
+        period = self._refresh_period
+        if period is None:
+            return True, "static cache (no refresh loop configured)"
+        if not self._synced_once.is_set():
+            return False, "telemetry cache has not completed a refresh pass"
+        bound = self.freshness_bound()
+        now = self._clock()
+        with self._mtx:
+            last_pass = self._last_pass
+            stale = sorted(
+                name
+                for name in self._metric_refcounts
+                if name
+                and (name not in self._last_refresh or now - self._last_refresh[name] > bound)
+            )
+            registered = sum(1 for name in self._metric_refcounts if name)
+        if last_pass is None or now - last_pass > bound:
+            since = "never" if last_pass is None else f"{now - last_pass:.1f}s"
+            return False, f"refresh loop stalled (last pass {since} ago, bound {bound:.1f}s)"
+        if stale:
+            return False, f"metrics stale past {bound:.1f}s: {stale[:5]}"
+        return True, f"{registered} metrics fresh within {bound:.1f}s"
+
+    def freshness_bound(self) -> Optional[float]:
+        """The staleness bound in seconds (``freshness_max_age_s`` or 3x
+        the refresh period, at least 1 s); None for a static cache."""
+        period = self._refresh_period
+        if period is None:
+            return None
+        if self.freshness_max_age_s is not None:
+            return self.freshness_max_age_s
+        return max(3.0 * period, 1.0)
 
     def periodic_update(
         self,
@@ -198,6 +293,7 @@ class AutoUpdatingCache:
         (update first, then wait the tick)."""
         for key, value in (initial_data or {}).items():
             self._store.add(key, value)
+        self._refresh_period = period_seconds
         stop = stop or threading.Event()
         while not stop.is_set():
             self.update_all_metrics(client)
@@ -212,6 +308,7 @@ class AutoUpdatingCache:
     ) -> threading.Event:
         """Run :meth:`periodic_update` on a daemon thread; returns the stop
         event (caller-supplied ``stop`` is used when given)."""
+        self._refresh_period = period_seconds
         stop = stop or threading.Event()
         thread = threading.Thread(
             target=self.periodic_update,

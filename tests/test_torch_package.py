@@ -57,6 +57,32 @@ def test_import_pulls_in_no_jax():
     assert out.stdout.strip() == "0 []", out.stdout
 
 
+VERB_MODULES = [
+    f"{PORT_ROOT.name}.{name}"
+    for name in (
+        "extender",
+        "extender.server",
+        "extender.types",
+        "ops.scoring",
+        "tas.fastpath",
+        "tas.strategies.core",
+        "tas.strategies.dontschedule",
+        "tas.telemetryscheduler",
+        "utils.decisions",
+        "utils.events",
+        "utils.health",
+        "utils.trace",
+        "utils.tracing",
+    )
+]
+
+
+@pytest.mark.parametrize("module", VERB_MODULES)
+def test_import_pin_covers_the_verb_modules(module):
+    """The verbs' modules are among those the import pin above loads."""
+    assert module in {name for _path, name in _port_modules()}
+
+
 def test_no_source_imports_the_jax_package():
     offenders = []
     for path, _name in _port_modules():
