@@ -12,9 +12,11 @@ periods, checking every plan against the same planner on the CPU and that
 each replan launched the kernel once.  Then it serves the TAS verbs
 (Filter, Prioritize, Bind) from the port's ``Server`` on 127.0.0.1 over a
 CUDA-mirror extender steered by that planner, holds every response against
-a CPU-mirror extender and the host path, and times the verbs.  Prints the
-card, the timings (the kernel's two stages and its rescans at the main
-path's inputs and three others; the verbs' p50/p99 and warm passes), a
+a CPU-mirror extender and the host path, and times the verbs, holding
+verb p99, warm-pass and replan times to the limits ``PERF.md`` section 2
+sets.  Prints the card, the timings (the kernel's two stages and its
+rescans at the main path's inputs and three others; the verbs' p50/p99,
+their slowest requests' stages and the warm passes), a
 ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
 result line, when there is no GPU, when the package is not beside this
@@ -45,6 +47,10 @@ NEARLY_FULL_SHARE = 0.05  # nodes with 1-5 slots left
 CHURN = 0.3  # share of node values that move each sync period
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 SEED = 0
+# the end-to-end limits of PERF.md section 2, held on the card
+VERB_P99_LIMIT_MS = 30.0
+REFRESH_WARM_LIMIT_MS = 250.0
+REPLAN_P50_LIMIT_MS = 100.0
 
 
 class SmokeError(RuntimeError):
@@ -513,7 +519,7 @@ def replan_breakdown(torch, planner, repeats: int = 5) -> dict:
 # -- phase 6: the TAS verbs over a socket ---------------------------------------------
 
 SCORING_FUNCTIONS = ("ordinal_scores", "prioritize", "batch_prioritize", "filter", "filter_explain")
-TIMED_REQUESTS = 200
+TIMED_REQUESTS = 500
 SUBSET = 1_000
 
 
@@ -557,24 +563,27 @@ def percentile(values, q: float) -> float:
 
 
 @contextlib.contextmanager
-def full_collections():
-    """The interpreter's full (generation 2) collections inside the block,
-    in ms: one holds the GIL, so it stalls warm passes and requests alike."""
+def collections():
+    """The interpreter's collections inside the block, as (generation, ms):
+    each holds the GIL, so it stalls warm passes and requests alike."""
     pauses, started = [], []
 
     def on_gc(phase, info):
-        if info["generation"] != 2:
-            return
         if phase == "start":
             started.append(time.perf_counter())
         elif started:
-            pauses.append((time.perf_counter() - started.pop()) * 1e3)
+            pauses.append((info["generation"], (time.perf_counter() - started.pop()) * 1e3))
 
     gc.callbacks.append(on_gc)
     try:
         yield pauses
     finally:
         gc.callbacks.remove(on_gc)
+
+
+def full(pauses) -> list:
+    """The full (generation 2) collections' ms of a ``collections()`` list."""
+    return [ms for generation, ms in pauses if generation == 2]
 
 
 def run_verbs(torch, np, world: dict, device: str) -> dict:
@@ -618,14 +627,26 @@ def run_verbs(torch, np, world: dict, device: str) -> dict:
     check(server.wait_ready(), "the extender server did not start")
     conn = http.client.HTTPConnection("127.0.0.1", server.port, timeout=120)
 
-    def send(method, path, body=b"", content_type="application/json"):
+    def send(method, path, body=b"", content_type="application/json", request_id=None):
         headers = {"Content-Type": content_type} if content_type else {}
+        if request_id is not None:
+            headers["X-Request-ID"] = request_id
         start = time.perf_counter()
         conn.request(method, path, body=body, headers=headers)
         resp = conn.getresponse()
         data = resp.read()
         return resp.status, data, time.perf_counter() - start
 
+    def scoring_calls():
+        return {name: getattr(scoring, name).CALLS for name in SCORING_FUNCTIONS}
+
+    def check_warm(when):
+        check(ext.readiness_conditions()[0][1]() == (True, "fastpath warmed"), f"verbs: not warmed {when}")
+        for counter in ("pas_prioritize_host_fallback_total", "pas_filter_host_fallback_total"):
+            fallbacks = trace.COUNTERS.get(counter)
+            check(fallbacks == 0, f"verbs: {counter} is {fallbacks} {when}")
+
+    spans = []  # every completed span while the verbs are timed
     try:
         # open the connection and the server's handler thread before the
         # refresh, so the first request after it times the verb alone
@@ -636,7 +657,6 @@ def run_verbs(torch, np, world: dict, device: str) -> dict:
         hooks = mirror.on_state_change
         index = hooks.index(ext.warm_fastpath)
         refreshes = []
-        greedy_assign_cuda.LAUNCHES = 0
         for _round in range(2):
             warm_s = []
 
@@ -648,27 +668,26 @@ def run_verbs(torch, np, world: dict, device: str) -> dict:
             hooks[index] = timed_warm
             for name in SCORING_FUNCTIONS:
                 getattr(scoring, name).CALLS = 0
-            with full_collections() as pauses:
+            with collections() as pauses:
                 start = time.perf_counter()
                 world["refresh"]()
                 refresh_s = time.perf_counter() - start
             hooks[index] = ext.warm_fastpath
-            calls = {name: getattr(scoring, name).CALLS for name in SCORING_FUNCTIONS}
+            calls = scoring_calls()
             check(
                 calls == expected_warm_calls(),
                 f"verbs: scoring calls {calls}, expected {expected_warm_calls()}",
             )
             refreshes.append(
-                {"warm_ms": [t * 1e3 for t in warm_s], "refresh_ms": refresh_s * 1e3, "gc_ms": pauses}
+                {"warm_ms": [t * 1e3 for t in warm_s], "refresh_ms": refresh_s * 1e3, "gc_ms": full(pauses)}
             )
+        check_warm("after the refreshes")
+        greedy_assign_cuda.LAUNCHES = 0
         planned_count = planner.replan()
         launches = greedy_assign_cuda.LAUNCHES
         status, _data, first_s = send("POST", "/scheduler/prioritize", first_body)
         check(status == 200, f"verbs: first Prioritize after the refresh answered {status}")
-        check(
-            {name: getattr(scoring, name).CALLS for name in SCORING_FUNCTIONS} == calls,
-            "verbs: a request ran a scoring function",
-        )
+        check(scoring_calls() == calls, "verbs: the first request ran a scoring function")
         if device == "cuda":
             check(launches == 1, f"verbs: greedy_assign launched {launches} times in the verbs' replan")
         check(cpu_planner.replan() == planned_count, "verbs: the CPU planner planned another count")
@@ -677,6 +696,9 @@ def run_verbs(torch, np, world: dict, device: str) -> dict:
             "verbs: the plan differs from the CPU planner's",
         )
         control_cache.update_all_metrics(client)
+        # the controls' warm passes ran above; from here on no request, of
+        # the CUDA extender or a control, may run a scoring function
+        calls_served = scoring_calls()
 
         # -- the request mix ----------------------------------------------------
         by_policy = {}
@@ -746,13 +768,17 @@ def run_verbs(torch, np, world: dict, device: str) -> dict:
                 )
                 promoted += 1
         check(promoted >= 8, f"verbs: only {promoted} planned pods checked")
+        check(scoring_calls() == calls_served, "verbs: a request of the mix ran a scoring function")
         status, data, _s = send("GET", "/readyz", content_type=None)
         check(status == 200, f"verbs: /readyz answered {status}: {data[:200]!r}")
-        check(ext.readiness_conditions()[0][1]() == (True, "fastpath warmed"), "verbs: not warmed")
+        check_warm("after the mix")
 
         # -- timing over the socket -----------------------------------------------
+        # the server's spans are taken as they complete, matched to the
+        # client's times by X-Request-ID
         timed = {}
         stages = {}
+        trace.SPAN_OBSERVERS.append(spans.append)
         for verb in ("filter", "prioritize"):
             bodies = [
                 args_body(pod, f"pol-{k}", nodes)
@@ -761,31 +787,50 @@ def run_verbs(torch, np, world: dict, device: str) -> dict:
             ]
             for body in bodies:  # warm-up
                 send("POST", f"/scheduler/{verb}", body)
-            trace.TRACES.clear()
+            ids = [f"timed-{verb}-{i}" for i in range(TIMED_REQUESTS)]
             times = []
-            with full_collections() as pauses:
-                for i in range(TIMED_REQUESTS):
-                    status, _data, seconds = send("POST", f"/scheduler/{verb}", bodies[i % len(bodies)])
+            with collections() as pauses:
+                for i, request_id in enumerate(ids):
+                    status, _data, seconds = send(
+                        "POST", f"/scheduler/{verb}", bodies[i % len(bodies)], request_id=request_id
+                    )
                     check(status == 200, f"verbs: timed {verb} answered {status}")
                     times.append(seconds * 1e3)
-            spans = trace.TRACES.snapshot(verb=verb)["recent"]
-            check(len(spans) == TIMED_REQUESTS, f"verbs: {len(spans)} {verb} spans recorded")
-            if verb == "prioritize":
-                paths = {span["attrs"].get("path") for span in spans}
-                check(paths == {"device"}, f"verbs: timed Prioritize spans took paths {paths}")
+            deadline = time.perf_counter() + 5.0
+            while (not spans or spans[-1].trace_id != ids[-1]) and time.perf_counter() < deadline:
+                time.sleep(0.01)  # the last span is added after its response is sent
+            by_id = {span.trace_id: span for span in spans}
+            check(all(i in by_id for i in ids), f"verbs: {verb} spans missing")
+            timed_spans = [by_id[i] for i in ids]
+            paths = {span.attrs.get("path") for span in timed_spans}
+            check(paths == {"device"}, f"verbs: timed {verb} spans took paths {paths}")
+            check(scoring_calls() == calls_served, f"verbs: a timed {verb} ran a scoring function")
+            slowest = sorted(range(len(times)), key=times.__getitem__)[-3:][::-1]
             timed[verb] = {
                 "p50_ms": statistics.median(times),
                 "p99_ms": percentile(times, 0.99),
+                "max_ms": max(times),
                 "n": len(times),
-                "gc_ms": pauses,
+                "gc": pauses,
+                "slowest": [
+                    {
+                        "client_ms": times[i],
+                        "server_ms": timed_spans[i].duration_s * 1e3,
+                        "stages": {k: v * 1e3 for k, v in timed_spans[i].stage_seconds().items()},
+                    }
+                    for i in slowest
+                ],
             }
             per_stage = {}
-            for span in spans:
-                for stage in span["stages"]:
-                    per_stage.setdefault(stage["name"], []).append(stage["duration_ms"])
+            for span in timed_spans:
+                for name, seconds in span.stage_seconds().items():
+                    per_stage.setdefault(name, []).append(seconds * 1e3)
+            per_stage["outside the server span"] = [
+                t - span.duration_s * 1e3 for t, span in zip(times, timed_spans)
+            ]
             stages[verb] = {name: statistics.median(ms) for name, ms in per_stage.items()}
-        fallbacks = trace.COUNTERS.get("pas_prioritize_host_fallback_total")
-        check(fallbacks == 0, f"verbs: {fallbacks} Prioritize host fallbacks")
+            spans.clear()
+        check_warm("after the timed requests")
 
         # device time of the warm pass's scoring calls at the mirror's shape
         policies_now, view, _host_only = mirror.policies_snapshot()
@@ -811,6 +856,8 @@ def run_verbs(torch, np, world: dict, device: str) -> dict:
                 for c in policies_now.values()
             )
     finally:
+        if spans.append in trace.SPAN_OBSERVERS:
+            trace.SPAN_OBSERVERS.remove(spans.append)
         conn.close()
         server.shutdown()
     return {
@@ -841,22 +888,23 @@ def verbs_line(verbs: dict, card: str) -> str:
     )
     return (
         f"verbs {NUM_NODES} nodes, NodeNames mode over a socket: filter p50 {f['p50_ms']:.3f} ms "
-        f"p99 {f['p99_ms']:.3f} ms (n={f['n']}), prioritize p50 {p['p50_ms']:.3f} ms "
-        f"p99 {p['p99_ms']:.3f} ms (n={p['n']}); warm passes per churned refresh "
+        f"p99 {f['p99_ms']:.3f} ms max {f['max_ms']:.3f} ms (n={f['n']}), prioritize p50 "
+        f"{p['p50_ms']:.3f} ms p99 {p['p99_ms']:.3f} ms max {p['max_ms']:.3f} ms (n={p['n']}); "
+        f"warm passes per churned refresh "
         f"({calls['batch_prioritize']} batched rankings, {calls['filter_explain']} filter_explain): "
         f"{refreshes}; first request after the refresh {verbs['first_ms']:.3f} ms; "
         f"{verbs['requests']} requests equal to the CPU-mirror control, {verbs['host_checked']} to "
-        f"the host path, {verbs['promoted']} planned pods promoted, 0 host fallbacks [{card}]"
+        f"the host path, {verbs['promoted']} planned pods promoted, 0 host fallbacks, every timed "
+        f"span on the device path [{card}]"
     )
 
 
 def verbs_breakdown_line(verbs: dict, card: str) -> str:
     parts = []
     for verb, stages in verbs["stages"].items():
-        pauses = verbs["timed"][verb]["gc_ms"]
         parts.append(
             f"{verb} " + ", ".join(f"{name} {ms:.3f}" for name, ms in stages.items())
-            + f" ({len(pauses)} full collections in the timed run, {sum(pauses):.3f} ms)"
+            + f" ({gc_summary(verbs['timed'][verb]['gc'])} in the timed run)"
         )
     device = ""
     if verbs["rank_ms"] is not None:
@@ -866,6 +914,48 @@ def verbs_breakdown_line(verbs: dict, card: str) -> str:
             f"x{verbs['explain_policies']} {verbs['explain_ms']:.4f} ms"
         )
     return f"verbs stages (span medians, ms): {'; '.join(parts)}{device} [{card}]"
+
+
+def gc_summary(pauses) -> str:
+    by_generation = {}
+    for generation, ms in pauses:
+        by_generation.setdefault(generation, []).append(ms)
+    if not by_generation:
+        return "no collections"
+    return "collections " + ", ".join(
+        f"gen {g}: {len(ms)} ({sum(ms):.3f} ms, max {max(ms):.3f})" for g, ms in sorted(by_generation.items())
+    )
+
+
+def verbs_tail_line(verbs: dict, card: str) -> str:
+    """The slowest timed requests of each verb, client time beside the
+    server span's time and stages (ms): where the tail comes from."""
+    parts = []
+    for verb, timed in verbs["timed"].items():
+        parts.append(
+            f"{verb} "
+            + "; ".join(
+                f"client {r['client_ms']:.3f} (server {r['server_ms']:.3f}: "
+                + ", ".join(f"{name} {ms:.3f}" for name, ms in r["stages"].items())
+                + ")"
+                for r in timed["slowest"]
+            )
+        )
+    return f"verbs tail (the 3 slowest of {TIMED_REQUESTS} each, ms): {' | '.join(parts)} [{card}]"
+
+
+def check_limits(verbs: dict, replan_ms) -> None:
+    """The end-to-end limits of PERF.md section 2."""
+    for verb, timed in verbs["timed"].items():
+        check(
+            timed["p99_ms"] <= VERB_P99_LIMIT_MS,
+            f"{verb} p99 {timed['p99_ms']:.3f} ms is over its {VERB_P99_LIMIT_MS} ms limit",
+        )
+    for refresh in verbs["refreshes"]:
+        warm = sum(refresh["warm_ms"])
+        check(warm <= REFRESH_WARM_LIMIT_MS, f"a refresh's warm passes took {warm:.3f} ms")
+    replan_p50 = statistics.median(replan_ms)
+    check(replan_p50 <= REPLAN_P50_LIMIT_MS, f"replan wall p50 {replan_p50:.3f} ms is over its limit")
 
 
 def main() -> int:
@@ -949,6 +1039,12 @@ def main() -> int:
     verbs = run_verbs(torch, np, main_path, "cuda")
     print(verbs_line(verbs, card))
     print(verbs_breakdown_line(verbs, card))
+    print(verbs_tail_line(verbs, card))
+    check_limits(verbs, replan_ms)
+    print(
+        f"limits met: verb p99 <= {VERB_P99_LIMIT_MS} ms, warm passes <= {REFRESH_WARM_LIMIT_MS} ms "
+        f"a refresh, replan p50 <= {REPLAN_P50_LIMIT_MS} ms"
+    )
 
     kernels = [
         {

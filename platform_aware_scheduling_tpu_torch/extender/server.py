@@ -366,14 +366,14 @@ class _FastHTTPHandler(socketserver.BaseRequestHandler):
 class Server:
     """Wraps a Scheduler implementation with the HTTP(S) extender endpoint."""
 
-    def __init__(self, scheduler: "Scheduler", metrics_provider=None, probe=None):
+    def __init__(self, scheduler: "Scheduler", metrics_provider=None):
         """``metrics_provider``: optional zero-arg callable returning
-        Prometheus exposition text, served on GET /metrics.  ``probe``: the
-        /readyz ReadinessProbe; defaults to one seeded from the scheduler's
-        ``readiness_conditions()`` (utils/health.py)."""
+        Prometheus exposition text, served on GET /metrics.  /readyz
+        evaluates the scheduler's ``readiness_conditions()``
+        (utils/health.py)."""
         self.scheduler = scheduler
         self.metrics_provider = metrics_provider
-        self.probe = probe if probe is not None else health.probe_for(scheduler)
+        self.probe = health.probe_for(scheduler)
         self._httpd: Optional[socketserver.ThreadingTCPServer] = None
         self._ready = threading.Event()
 
@@ -414,11 +414,9 @@ class Server:
                     return HTTPResponse.json(b'{"error": "min_ms must be a number"}\n', status=400)
             return HTTPResponse.json(trace.TRACES.to_json(verb=params.get("verb"), min_ms=min_ms))
         if bare_path == "/debug/decisions":
-            # decision provenance; 404 while the log is disabled
+            # decision provenance
             if request.method != "GET":
                 return HTTPResponse(status=405)
-            if not decisions.DECISIONS.enabled:
-                return HTTPResponse.json(b'{"error": "decision log disabled"}\n', status=404)
             params = parse_query(request.path)
             try:
                 limit = int(params.get("limit", "64"))
@@ -430,11 +428,9 @@ class Server:
                 )
             )
         if bare_path == "/debug/explain":
-            # causal event spine; 404 while the journal is disabled
+            # causal event spine
             if request.method != "GET":
                 return HTTPResponse(status=405)
-            if not events.JOURNAL.enabled:
-                return HTTPResponse.json(b'{"error": "event journal disabled"}\n', status=404)
             params = parse_query(request.path)
             query = {key: params.get(key, "") for key in ("request_id", "pod", "gang", "node")}
             if not any(query.values()):

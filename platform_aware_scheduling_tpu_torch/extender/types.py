@@ -212,18 +212,21 @@ class Args:
                 raise DecodeError(
                     "error decoding request: NodeNames is not a list"
                 )
-            fixed = []
-            for entry in node_names:
-                if entry is None:
-                    fixed.append("")  # Go: null into string = zero value
-                elif not isinstance(entry, str):
-                    raise DecodeError(
-                        "error decoding request: NodeNames entry is not "
-                        "a string"
-                    )
-                else:
-                    fixed.append(entry)
-            node_names = fixed
+            # one C-level pass for the usual all-strings list; the entry
+            # loop below only runs when some entry is not a string
+            if not set(map(type, node_names)) <= {str}:
+                fixed = []
+                for entry in node_names:
+                    if entry is None:
+                        fixed.append("")  # Go: null into string = zero value
+                    elif not isinstance(entry, str):
+                        raise DecodeError(
+                            "error decoding request: NodeNames entry is not "
+                            "a string"
+                        )
+                    else:
+                        fixed.append(entry)
+                node_names = fixed
         return cls(pod=pod, nodes=nodes, node_names=node_names)
 
     def to_json(self) -> bytes:

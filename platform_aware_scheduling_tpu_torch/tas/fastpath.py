@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import json
 import threading
+from itertools import repeat
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -45,8 +46,8 @@ from platform_aware_scheduling_tpu_torch.utils import decisions, trace
 # op id -> operator name, for decoding device rule indexes into reasons
 _OP_NAMES = {op_id: name for name, op_id in OP_IDS.items()}
 
-# rank -> b'<score>}' suffix bytes, grown on demand (scores are ordinal
-# 10 - rank and go negative past rank 10)
+# rank -> b'<score>}, ' suffix bytes (entry end and separator), grown on
+# demand (scores are ordinal 10 - rank and go negative past rank 10)
 _SCORE_SUFFIX: List[bytes] = []
 _SCORE_LOCK = threading.Lock()
 
@@ -55,7 +56,7 @@ def _score_suffixes(n: int) -> List[bytes]:
     if len(_SCORE_SUFFIX) < n:
         with _SCORE_LOCK:
             for i in range(len(_SCORE_SUFFIX), n):
-                _SCORE_SUFFIX.append(f"{10 - i}}}".encode())
+                _SCORE_SUFFIX.append(f"{10 - i}}}, ".encode())
     return _SCORE_SUFFIX
 
 
@@ -229,11 +230,6 @@ class PrioritizeFastPath:
         pair in one device pass; returns the number of pairs computed."""
         return self._solve(view, pairs)[0]
 
-    def warm_pairs(self, view: DeviceView, pairs) -> None:
-        """Warm rankings for (metric row, op) pairs against ``view``
-        without the precompute pruning."""
-        self.warm_rankings_batched(view, pairs)
-
     def precompute(
         self, view: DeviceView, pairs, policies: Sequence[CompiledPolicy] = ()
     ) -> int:
@@ -272,7 +268,7 @@ class PrioritizeFastPath:
             index = table.node_index
             sentinel = table.node_capacity
             mask = np.zeros(sentinel + 1, dtype=bool)
-            rows = np.fromiter((index.get(n, sentinel) for n in names), dtype=np.int64, count=len(names))
+            rows = np.fromiter(map(index.get, names, repeat(sentinel)), dtype=np.int64, count=len(names))
             mask[rows] = True
             mask[sentinel] = False
             sel = ranked[mask[ranked]]
@@ -286,12 +282,16 @@ class PrioritizeFastPath:
 
     @staticmethod
     def _encode(table: _ViewTable, sel: np.ndarray) -> bytes:
-        if sel.size == 0:
+        k = sel.size
+        if k == 0:
             return b"[]\n"
-        fragments = table.fragments
-        suffix = _score_suffixes(sel.size)
-        parts = [fragments[r] + suffix[i] for i, r in enumerate(sel.tolist())]
-        return b"[" + b", ".join(parts) + b"]\n"
+        # fragments and suffixes interleaved, so one C-level join builds
+        # the body with no per-entry concatenation
+        parts = [b""] * (2 * k)
+        parts[0::2] = map(table.fragments.__getitem__, sel.tolist())
+        parts[1::2] = _score_suffixes(k)[:k]
+        parts[-1] = parts[-1][:-2]  # no separator after the last entry
+        return b"[" + b"".join(parts) + b"]\n"
 
     # -- filter ----------------------------------------------------------------
 

@@ -26,12 +26,16 @@ Two execution paths give identical wire bytes:
     all, and as the control in tests.
 
 The verbs keep the reference's contract that they never fail: device
-trouble falls back to the host path, and Prioritize counts it on
-``pas_prioritize_host_fallback_total``.  The JAX extender's optional
-planes (degraded mode, shards, admission, gangs, forecasts, SLOs,
-control, flight recorder, solve observatory, leadership, rebalancer) and
-its native wire path are not ported yet; with them unset the JAX verbs
-answer with the same bytes as this module.
+trouble falls back to the host path.  The fallback is never silent: each
+verb's span carries ``path`` (``device`` or ``host``), and a fallback
+counts on ``pas_prioritize_host_fallback_total`` or
+``pas_filter_host_fallback_total``; a warm pass that raises clears the
+``kernels_warmed`` readiness condition until one succeeds.
+
+The JAX extender's optional planes (degraded mode, shards, admission,
+gangs, forecasts, SLOs, control, flight recorder, solve observatory,
+leadership, rebalancer) and its native wire path are not ported yet;
+with them unset the JAX verbs answer with the same bytes as this module.
 """
 
 from __future__ import annotations
@@ -70,7 +74,6 @@ class MetricsExtender:
         self,
         cache: AutoUpdatingCache,
         mirror: Optional[TensorStateMirror] = None,
-        recorder: Optional[LatencyRecorder] = None,
         planner=None,
         node_cache_capable: bool = False,
     ):
@@ -84,12 +87,11 @@ class MetricsExtender:
         self.cache = cache
         self.mirror = mirror
         self.node_cache_capable = node_cache_capable
-        self.recorder = recorder or LatencyRecorder()
+        self.recorder = LatencyRecorder()
         self.planner = planner
         # request-independent ranking/violation caches + byte encoder
         self.fastpath = PrioritizeFastPath() if mirror is not None else None
-        # /readyz "kernels_warmed": set at the end of the first warm pass
-        # that did not raise
+        # /readyz "kernels_warmed": whether the latest warm pass completed
         self._warmed = False
         if mirror is not None:
             # every mirror publish warms the fastpath in the publishing
@@ -129,6 +131,7 @@ class MetricsExtender:
                 fastpath.violation_reasons(compiled, view, name)
             self._warmed = True
         except Exception as exc:  # warming must never break the writer
+            self._warmed = False
             klog.error("fastpath warm failed: %s", exc)
 
     # -- readiness and metrics --------------------------------------------------
@@ -204,7 +207,7 @@ class MetricsExtender:
             if args is None:
                 return HTTPResponse()
             with span.stage("kernel"):
-                result = self._filter_nodes(args)
+                result = self._filter_nodes(args, span)
             if result is None:
                 klog.v(2).info_s("No filtered nodes returned", component="extender")
                 return HTTPResponse.json(b"null\n", status=404)
@@ -239,7 +242,7 @@ class MetricsExtender:
         """TAS does not bind: always 404.  The body (kube-scheduler POSTs
         BindingArgs regardless) is outcome feedback that closes the pod's
         open decision records."""
-        if decisions.DECISIONS.enabled and request.body:
+        if request.body:
             try:
                 args = BindingArgs.from_json(request.body)
                 if args.pod_name and args.node:
@@ -276,9 +279,6 @@ class MetricsExtender:
         """One Prioritize decision record: device-path records reference
         the shared per-state score head and ranking, host-path records
         copy the top of their own result.  Never raises into the verb."""
-        log = decisions.DECISIONS
-        if not log.enabled:
-            return
         try:
             head: List = []
             ranked = None
@@ -287,7 +287,7 @@ class MetricsExtender:
                 head, ranked, node_index = self.fastpath.explain_prioritize(compiled, view)
             elif result:
                 head = [(hp.host, hp.score) for hp in result[:10]]
-            log.record_prioritize(
+            decisions.DECISIONS.record_prioritize(
                 request_id=span.trace_id,
                 pod_namespace=namespace,
                 pod_name=pod_name,
@@ -402,7 +402,7 @@ class MetricsExtender:
 
     # -- filter logic ----------------------------------------------------------
 
-    def _filter_nodes(self, args: Args) -> Optional[FilterResult]:
+    def _filter_nodes(self, args: Args, span=trace.NULL_SPAN) -> Optional[FilterResult]:
         """filterNodes: the pod's policy, its dontschedule violation set,
         and the candidates split into passing and failed."""
         try:
@@ -417,7 +417,7 @@ class MetricsExtender:
                 component="extender",
             )
             return None
-        violating = self._violating_nodes(policy, strategy)
+        violating = self._violating_nodes(policy, strategy, span)
         if not args.nodes:
             if self.node_cache_capable and args.node_names:
                 return self._filter_node_names(policy, args.node_names, violating)
@@ -455,17 +455,23 @@ class MetricsExtender:
             )
         return FilterResult(nodes=None, node_names=node_names, failed_nodes=failed, error="")
 
-    def _violating_nodes(self, policy: TASPolicy, strategy: dontschedule.Strategy) -> Dict[str, str]:
+    def _violating_nodes(
+        self, policy: TASPolicy, strategy: dontschedule.Strategy, span=trace.NULL_SPAN
+    ) -> Dict[str, str]:
         """{violating node: reason string}: decoded from the device's
-        rule-index vector, or from ``violated_details`` on the host."""
+        rule-index vector, or from ``violated_details`` on the host; the
+        span's ``path`` says which."""
         compiled, view = self._device_policy(policy)
         if compiled is not None and self._device_filter_ok(compiled):
             try:
                 explained = self.fastpath.violation_reasons(compiled, view, policy.name)
                 if explained is not None:
+                    span.set("path", "device")
                     return explained[1]
-            except Exception as exc:
+            except Exception as exc:  # device trouble must never fail the verb
+                trace.COUNTERS.inc("pas_filter_host_fallback_total")
                 klog.error("device filter failed, host fallback: %s", exc)
+        span.set("path", "host")
         return {name: detail[1] for name, detail in strategy.violated_details(self.cache).items()}
 
     # -- shared helpers --------------------------------------------------------

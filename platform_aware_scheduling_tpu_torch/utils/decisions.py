@@ -227,14 +227,8 @@ class DecisionLog:
     ones.  One short lock per record or bind; /debug/decisions serves a
     snapshot."""
 
-    def __init__(
-        self,
-        capacity: int = 512,
-        enabled: bool = True,
-        clock: Callable[[], float] = time.time,
-    ):
+    def __init__(self, capacity: int = 512, clock: Callable[[], float] = time.time):
         self.capacity = max(1, capacity)
-        self.enabled = enabled
         self._clock = clock
         self._lock = threading.Lock()
         self._records: deque = deque()
@@ -243,21 +237,14 @@ class DecisionLog:
         self._recorded_total = 0
         self._open = 0
 
-    def configure(self, enabled: Optional[bool] = None, capacity: Optional[int] = None) -> None:
-        """Apply --decisionLog / --decisionLogSize; resets the ring."""
+    def clear(self) -> None:
+        """Empty the ring and its open index."""
         with self._lock:
-            if capacity is not None:
-                self.capacity = max(1, int(capacity))
-            if enabled is not None:
-                self.enabled = bool(enabled)
             self._records.clear()
             self._open_by_pod.clear()
             self._open = 0
             self._recorded_total = 0
         trace.COUNTERS.set_gauge("pas_decision_open", 0.0)
-
-    def clear(self) -> None:
-        self.configure()
 
     def __len__(self) -> int:
         with self._lock:
@@ -266,8 +253,6 @@ class DecisionLog:
     # -- recording -------------------------------------------------------------
 
     def add(self, record: DecisionRecord) -> None:
-        if not self.enabled:
-            return
         evicted_open = 0
         with self._lock:
             self._seq += 1
@@ -305,8 +290,6 @@ class DecisionLog:
     ) -> None:
         """One Filter decision; ``filtered`` is the request's exact
         failed-node count, counted under ``reason_code``."""
-        if not self.enabled:
-            return
         record = DecisionRecord(verb=verb, **kwargs)
         self.add(record)
         if record.filtered:
@@ -317,8 +300,6 @@ class DecisionLog:
             )
 
     def record_prioritize(self, verb: str = "prioritize", **kwargs) -> None:
-        if not self.enabled:
-            return
         self.add(DecisionRecord(verb=verb, **kwargs))
 
     # -- outcome feedback ------------------------------------------------------
@@ -327,8 +308,6 @@ class DecisionLog:
         """A pod-bind observation: close the pod's open records, scoring
         the chosen node's rank in the Prioritize ordering and whether
         Filter had marked it violating."""
-        if not self.enabled:
-            return
         key = f"{namespace}/{name}"
         bound_at = self._clock()
         violated = False
@@ -382,7 +361,7 @@ class DecisionLog:
             if len(selected) >= max(1, limit):
                 break
         return {
-            "enabled": self.enabled,
+            "enabled": True,  # the JAX log's flag; the port's log is always on
             "capacity": self.capacity,
             "recorded_total": recorded_total,
             "open": open_count,

@@ -35,7 +35,6 @@ class EventJournal:
     def __init__(self, capacity: int = 4096, clock: Callable[[], float] = time.monotonic):
         self.capacity = max(1, capacity)
         self.clock = clock
-        self.enabled = True
         self._lock = threading.Lock()
         self._ring: deque = deque(maxlen=self.capacity)
         self._seq = 0
@@ -52,8 +51,6 @@ class EventJournal:
         data: Optional[Dict] = None,
     ) -> None:
         """Append one typed event; never raises, never blocks a verb."""
-        if not self.enabled:
-            return
         record = {
             "seq": 0,  # assigned under the lock
             "t": self.clock(),
@@ -74,14 +71,6 @@ class EventJournal:
                 trace.COUNTERS.inc("pas_events_dropped_total")
             self._ring.append(record)
         trace.COUNTERS.inc("pas_events_published_total", labels={"kind": kind})
-
-    def configure(self, enabled: Optional[bool] = None, capacity: Optional[int] = None) -> None:
-        with self._lock:
-            if capacity is not None and capacity != self.capacity:
-                self.capacity = max(1, capacity)
-                self._ring = deque(self._ring, maxlen=self.capacity)
-        if enabled is not None:
-            self.enabled = enabled
 
     def reset(self) -> None:
         with self._lock:

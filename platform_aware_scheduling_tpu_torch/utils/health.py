@@ -18,7 +18,6 @@ import threading
 from typing import Callable, Dict, List, Optional, Tuple
 
 from platform_aware_scheduling_tpu_torch.utils import klog, trace
-from platform_aware_scheduling_tpu_torch.utils.tracing import CounterSet
 
 #: a condition callable: () -> (ok, reason) — or a bare bool, normalized
 Check = Callable[[], Tuple[bool, str]]
@@ -31,11 +30,10 @@ class ReadinessProbe:
     conditions means ready; a condition that raises is NOT ready, with the
     exception as its reason."""
 
-    def __init__(self, counters: Optional[CounterSet] = None):
+    def __init__(self):
         self._lock = threading.Lock()
         self._conditions: List[Tuple[str, Check]] = []
         self._last_ready: Optional[bool] = None
-        self.counters = counters if counters is not None else trace.COUNTERS
 
     def register(self, name: str, check: Check) -> "ReadinessProbe":
         with self._lock:
@@ -59,9 +57,9 @@ class ReadinessProbe:
         with self._lock:
             flipped = self._last_ready is not None and self._last_ready != ready
             self._last_ready = ready
-        self.counters.set_gauge("pas_ready", 1 if ready else 0)
+        trace.COUNTERS.set_gauge("pas_ready", 1 if ready else 0)
         if flipped:
-            self.counters.inc("pas_ready_transitions_total")
+            trace.COUNTERS.inc("pas_ready_transitions_total")
         return ready, results
 
     def readyz_response(self) -> Tuple[int, bytes]:
@@ -71,11 +69,11 @@ class ReadinessProbe:
         return (200 if ready else 503), body
 
 
-def probe_for(scheduler, counters: Optional[CounterSet] = None) -> ReadinessProbe:
+def probe_for(scheduler) -> ReadinessProbe:
     """A probe seeded from the scheduler's ``readiness_conditions()``
     (a list of (name, check) pairs); a scheduler without one is always
     ready.  A provider that raises registers one failing condition."""
-    probe = ReadinessProbe(counters=counters)
+    probe = ReadinessProbe()
     conditions = getattr(scheduler, "readiness_conditions", None)
     if callable(conditions):
         try:

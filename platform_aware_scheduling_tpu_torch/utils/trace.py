@@ -52,6 +52,7 @@ declare("pas_request_duration_seconds", "histogram", "Verb/stage wall latency (l
 # degradation EVENTS and overlaps the partition counter
 declare("pas_prioritize_exact_total", "counter", "Prioritize requests served by the exact Python path.")
 declare("pas_prioritize_host_fallback_total", "counter", "Device-path failures degraded to host semantics (events; overlaps the partition counters).")
+declare("pas_filter_host_fallback_total", "counter", "Filter device-path failures degraded to host semantics.")
 declare("pas_filter_cache_bypass_total", "counter", "Filter requests not cacheable (host-only policy, odd shapes, no native scanner).")
 declare("pas_traces_recorded_total", "counter", "Completed spans recorded into the trace ring buffer.")
 declare("pas_ready", "gauge", "Composite readiness: 1 when every /readyz condition holds, else 0.")
@@ -341,7 +342,6 @@ def help_texts() -> Dict[str, str]:
 def exposition(
     recorders: Iterable[LatencyRecorder] = (),
     counter_sets: Iterable[CounterSet] = (),
-    include_global: bool = True,
 ) -> str:
     """One Prometheus text page: every recorder merged under the single
     ``pas_request_duration_seconds`` family, then each counter set, then
@@ -350,6 +350,5 @@ def exposition(
     parts = [histograms_text(list(recorders), help_texts=helps)]
     for cs in counter_sets:
         parts.append(cs.prometheus_text(help_texts=helps))
-    if include_global:
-        parts.append(COUNTERS.prometheus_text(help_texts=helps))
+    parts.append(COUNTERS.prometheus_text(help_texts=helps))
     return "".join(parts)

@@ -531,6 +531,75 @@ def test_filter_records_bypass_decisions():
     assert (record["verb"], record["path"], record["filtered"]) == ("filter", "bypass", 1)
 
 
+def filter_with_span(ext, body):
+    span = trace.Span("POST /scheduler/filter")
+    response = ext.filter(
+        HTTPRequest("POST", "/scheduler/filter", {"Content-Type": "application/json"}, body, span=span)
+    )
+    return response, span
+
+
+@pytest.mark.parametrize("verb", ["prioritize", "filter"])
+def test_device_trouble_is_a_visible_host_fallback(verb):
+    """A device path that raises still answers with the host path's bytes,
+    and says so: the span's path is ``host`` and the verb's fallback
+    counter moves by one."""
+    stacks = quirk_stacks()
+    body = policy_body("pol", ["n1", "n2", "n3"], nodes=False)
+    want = stacks.post(verb, body).body  # the JAX package's bytes
+    counter = f"pas_{verb}_host_fallback_total"
+
+    def served():
+        span = trace.Span(f"POST /scheduler/{verb}")
+        request = HTTPRequest(
+            "POST", f"/scheduler/{verb}", {"Content-Type": "application/json"}, body, span=span
+        )
+        before = trace.COUNTERS.get(counter)
+        assert getattr(stacks.port, verb)(request).body == want
+        return span.attrs["path"], trace.COUNTERS.get(counter) - before
+
+    assert served() == ("device", 0)
+
+    def broken(*args, **kwargs):
+        raise RuntimeError("device lost")
+
+    stacks.port.fastpath.prioritize_bytes = broken
+    stacks.port.fastpath.violation_reasons = broken
+    assert served() == ("host", 1)
+
+
+def test_filter_span_path_is_host_without_device_rules():
+    """A host-only extender's Filter says ``host`` on its span and counts
+    no fallback."""
+    stacks = Stacks(mirror=False)
+    stacks.policy("pol", {"dontschedule": [rule("m", "GreaterThan", 60)]})
+    stacks.metric("m", {"n1": 10, "n2": 70})
+    before = trace.COUNTERS.get("pas_filter_host_fallback_total")
+    response, span = filter_with_span(stacks.port, policy_body("pol", ["n1", "n2"], nodes=False))
+    assert json.loads(response.body)["NodeNames"] == ["n1"]
+    assert span.attrs["path"] == "host"
+    assert trace.COUNTERS.get("pas_filter_host_fallback_total") == before
+
+
+def test_failed_warm_pass_clears_readiness():
+    """kernels_warmed reports the LATEST warm pass: one that raises turns
+    it off until a later pass succeeds."""
+    stacks = quirk_stacks()
+    warmed = stacks.port.readiness_conditions()[0][1]
+    assert warmed() == (True, "fastpath warmed")
+    precompute = stacks.port.fastpath.precompute
+
+    def broken(*args, **kwargs):
+        raise RuntimeError("device lost")
+
+    stacks.port.fastpath.precompute = broken
+    stacks.metric("m", {"n1": 11, "n2": 70, "n3": 40})
+    assert warmed() == (False, "fastpath warm has not completed")
+    stacks.port.fastpath.precompute = precompute
+    stacks.metric("m", {"n1": 12, "n2": 70, "n3": 40})
+    assert warmed() == (True, "fastpath warmed")
+
+
 # -- /readyz telemetry freshness ---------------------------------------------------
 
 
@@ -628,7 +697,6 @@ def test_violation_sets_like_jax():
     pair = (compiled.scheduleonmetric_row, compiled.scheduleonmetric_op)
     calls = scoring.batch_prioritize.CALLS
     assert stacks.port.fastpath.warm_rankings_batched(view, [pair]) == 0
-    stacks.port.fastpath.warm_pairs(view, [pair])
     assert scoring.batch_prioritize.CALLS == calls
 
 

@@ -203,6 +203,7 @@ ARGS_BODIES = [
     b'{"NodeNames": ["x"], "nodenames": ["y"], "NodeNames": ["z"], "pod": {"metadata": {"name": "p"}}}',
     b'{"Pod": {"metadata": null}, "nodes": {"items": [{"metadata": {"name": "n"}}]}}',
     b'{"Pod": {"metadata": {"name": "p", "labels": null}}, "Nodes": null, "NodeNames": null}',
+    b'{"Pod": {"metadata": {"name": "p"}}, "NodeNames": ["a", null, "b"]}',
 ]
 
 
@@ -220,7 +221,8 @@ def test_args_decode_like_jax(index):
 
 
 @pytest.mark.parametrize(
-    "body", [b'{"Pod": 1}', b'{"NodeNames": "n"}', b'{"Nodes": {"items": 3}}', b"[]"]
+    "body",
+    [b'{"Pod": 1}', b'{"NodeNames": "n"}', b'{"NodeNames": ["a", 1]}', b'{"Nodes": {"items": 3}}', b"[]"],
 )
 def test_args_decode_errors_like_jax(body):
     with pytest.raises(jax_types.DecodeError):
