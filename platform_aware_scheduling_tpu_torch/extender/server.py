@@ -414,9 +414,11 @@ class Server:
                     return HTTPResponse.json(b'{"error": "min_ms must be a number"}\n', status=400)
             return HTTPResponse.json(trace.TRACES.to_json(verb=params.get("verb"), min_ms=min_ms))
         if bare_path == "/debug/decisions":
-            # decision provenance
+            # decision provenance; 404 while the log is off (--decisionLog=off)
             if request.method != "GET":
                 return HTTPResponse(status=405)
+            if not decisions.DECISIONS.enabled:
+                return HTTPResponse.json(b'{"error": "decision log disabled"}\n', status=404)
             params = parse_query(request.path)
             try:
                 limit = int(params.get("limit", "64"))
@@ -428,9 +430,11 @@ class Server:
                 )
             )
         if bare_path == "/debug/explain":
-            # causal event spine
+            # causal event spine; 404 while the journal is off (--events=off)
             if request.method != "GET":
                 return HTTPResponse(status=405)
+            if not events.JOURNAL.enabled:
+                return HTTPResponse.json(b'{"error": "event journal disabled"}\n', status=404)
             params = parse_query(request.path)
             query = {key: params.get(key, "") for key in ("request_id", "pod", "gang", "node")}
             if not any(query.values()):

@@ -1,0 +1,259 @@
+"""List-watch informers with client-go replay and resync semantics.
+
+The port's copy of ``platform_aware_scheduling_tpu/kube/informer.py``.
+TAS watches the TASPolicy CRD through one, and the batch planner watches
+pods and nodes.  The semantics:
+
+  * the initial list delivers ADDED for every object, then the watch
+    stream delivers ADDED/MODIFIED/DELETED;
+  * a broken watch re-lists and delta-syncs: new objects -> add,
+    changed -> update, vanished -> delete wrapped in
+    ``DeletedFinalStateUnknown``;
+  * a resync period re-delivers update(obj, obj) for everything cached.
+
+Handlers never run concurrently: the watch and resync threads share one
+dispatch lock, as client-go delivers every handler call from one
+goroutine.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
+
+from platform_aware_scheduling_tpu_torch.kube.retry import backoff_delay, stable_hash
+from platform_aware_scheduling_tpu_torch.utils import klog, trace
+from platform_aware_scheduling_tpu_torch.utils.tracing import CounterSet
+
+
+@dataclass
+class DeletedFinalStateUnknown:
+    """Stand-in delivered when an object vanished during a watch gap."""
+
+    key: str
+    obj: Any
+
+
+class ListWatch:
+    """A pair of callables: ``list() -> (objects, resource_version)`` and
+    ``watch(resource_version) -> iterator of (event_type, obj)``."""
+
+    def __init__(
+        self,
+        list_func: Callable[[], Tuple[List[Any], str]],
+        watch_func: Callable[[str], Iterator[Tuple[str, Any]]],
+        key_func: Callable[[Any], str],
+    ):
+        self.list = list_func
+        self.watch = watch_func
+        self.key = key_func
+
+
+class Informer:
+    def __init__(
+        self,
+        list_watch: ListWatch,
+        on_add: Optional[Callable[[Any], None]] = None,
+        on_update: Optional[Callable[[Any, Any], None]] = None,
+        on_delete: Optional[Callable[[Any], None]] = None,
+        resync_period: float = 0.0,
+        name: str = "",
+        counters: Optional[CounterSet] = None,
+        relist_backoff_base_s: float = 0.2,
+        relist_backoff_max_s: float = 30.0,
+        clock: Callable[[], float] = time.monotonic,
+    ):
+        """A NAMED informer exports its health: the
+        ``pas_informer_relists_total`` and ``pas_informer_watch_errors_total``
+        counters and the ``pas_informer_synced`` gauge (0 until the initial
+        list delivers), all labelled ``informer=<name>``.  Unnamed
+        informers stay silent.
+
+        Consecutive watch failures back off between relists with capped
+        exponential delays and deterministic jitter (``kube.retry.
+        backoff_delay``, seeded off the name).  A watch that delivered at
+        least one event resets the streak."""
+        self._lw = list_watch
+        self._clock = clock
+        self.name = name
+        self.relist_backoff_base_s = relist_backoff_base_s
+        self.relist_backoff_max_s = relist_backoff_max_s
+        self._watch_failures = 0
+        #: recent computed backoff delays (bounded)
+        self.relist_backoffs: List[float] = []
+        self.counters = counters if counters is not None else trace.COUNTERS
+        if name:
+            self.counters.set_gauge("pas_informer_synced", 0, labels={"informer": name})
+        self._on_add = on_add or (lambda obj: None)
+        self._on_update = on_update or (lambda old, new: None)
+        self._on_delete = on_delete or (lambda obj: None)
+        self._resync_period = resync_period
+        self._store: Dict[str, Any] = {}
+        self._store_lock = threading.RLock()
+        # shared by the watch and resync threads so handlers never run
+        # concurrently (a resync update racing a delete could resurrect
+        # deleted state in subscribers)
+        self._dispatch_lock = threading.Lock()
+        self._synced = threading.Event()
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self._resync_thread: Optional[threading.Thread] = None
+        self._resource_version = ""
+
+    # -- store reads (the "lister") ------------------------------------------
+
+    def get(self, key: str) -> Optional[Any]:
+        with self._store_lock:
+            return self._store.get(key)
+
+    def list(self) -> List[Any]:
+        with self._store_lock:
+            return list(self._store.values())
+
+    def has_synced(self) -> bool:
+        return self._synced.is_set()
+
+    def serialized(self, fn: Callable[[], Any]) -> Any:
+        """Run ``fn`` under the dispatch lock: no handler runs concurrently
+        with it."""
+        with self._dispatch_lock:
+            return fn()
+
+    def wait_for_cache_sync(self, timeout: float = 30.0) -> bool:
+        return self._synced.wait(timeout)
+
+    # -- lifecycle -----------------------------------------------------------
+
+    def start(self) -> None:
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+        if self._resync_period > 0:
+            # its own timer thread: an idle watch stream must not starve
+            # the resync
+            self._resync_thread = threading.Thread(target=self._resync_loop, daemon=True)
+            self._resync_thread.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+
+    # -- event plumbing ------------------------------------------------------
+
+    def _dispatch_add(self, obj: Any) -> None:
+        with self._dispatch_lock:
+            self._on_add(obj)
+
+    def _dispatch_update(self, old: Any, new: Any) -> None:
+        with self._dispatch_lock:
+            self._on_update(old, new)
+
+    def _dispatch_delete(self, obj: Any) -> None:
+        with self._dispatch_lock:
+            self._on_delete(obj)
+
+    def _relist(self, initial: bool) -> None:
+        if self.name:
+            self.counters.inc("pas_informer_relists_total", labels={"informer": self.name})
+        objects, rv = self._lw.list()
+        new_state = {self._lw.key(obj): obj for obj in objects}
+        with self._store_lock:
+            old_state = dict(self._store)
+            self._store = dict(new_state)
+            self._resource_version = rv
+        for key, obj in new_state.items():
+            if key not in old_state:
+                self._dispatch_add(obj)
+            elif old_state[key] != obj:
+                self._dispatch_update(old_state[key], obj)
+        for key, obj in old_state.items():
+            if key not in new_state:
+                if initial:
+                    self._dispatch_delete(obj)
+                else:
+                    self._dispatch_delete(DeletedFinalStateUnknown(key=key, obj=obj))
+
+    def _resync_loop(self) -> None:
+        """Re-deliver update(obj, obj) for everything cached, every resync
+        period.  Each delivery re-reads the store under the dispatch lock,
+        so a resync never re-delivers an object after its delete."""
+        while not self._stop.wait(self._resync_period):
+            self._resync_once()
+
+    def _resync_once(self) -> None:
+        with self._store_lock:
+            keys = list(self._store.keys())
+        for key in keys:
+            with self._dispatch_lock:
+                with self._store_lock:
+                    current = self._store.get(key)
+                if current is None:
+                    continue
+                self._on_update(current, current)
+
+    def _backoff(self) -> float:
+        """Delay before the next relist after a watch/list failure."""
+        delay = backoff_delay(
+            self._watch_failures,
+            self.relist_backoff_base_s,
+            self.relist_backoff_max_s,
+            seed=stable_hash(self.name or "informer"),
+        )
+        self.relist_backoffs.append(delay)
+        del self.relist_backoffs[:-32]
+        return delay
+
+    def _run(self) -> None:
+        first = True
+        watch_started: Optional[float] = None
+        while not self._stop.is_set():
+            try:
+                self._relist(initial=first)
+                first = False
+                self._synced.set()
+                if self.name:
+                    self.counters.set_gauge("pas_informer_synced", 1, labels={"informer": self.name})
+                watch_started = self._clock()
+                for event_type, obj in self._lw.watch(self._resource_version):
+                    if self._stop.is_set():
+                        return
+                    # a delivering watch is a healthy watch: reset the
+                    # consecutive-failure streak
+                    self._watch_failures = 0
+                    key = self._lw.key(obj)
+                    if event_type == "ADDED":
+                        with self._store_lock:
+                            old = self._store.get(key)
+                            self._store[key] = obj
+                        if old is None:
+                            self._dispatch_add(obj)
+                        else:
+                            self._dispatch_update(old, obj)
+                    elif event_type == "MODIFIED":
+                        with self._store_lock:
+                            old = self._store.get(key)
+                            self._store[key] = obj
+                        self._dispatch_update(old, obj)
+                    elif event_type == "DELETED":
+                        with self._store_lock:
+                            self._store.pop(key, None)
+                        self._dispatch_delete(obj)
+            except StopIteration:
+                continue
+            except Exception as exc:  # noqa: BLE001 — the watch broke: back off, re-list
+                if self._stop.is_set():
+                    return
+                if self.name:
+                    self.counters.inc("pas_informer_watch_errors_total", labels={"informer": self.name})
+                # a watch that ran healthily past the backoff cap before
+                # breaking is a fresh incident, not the old streak
+                if (
+                    watch_started is not None
+                    and self._clock() - watch_started > max(self.relist_backoff_max_s, 1.0)
+                ):
+                    self._watch_failures = 0
+                watch_started = None
+                self._watch_failures += 1
+                delay = self._backoff()
+                klog.v(4).info_s(f"informer watch error, relisting in {delay:.3f}s: {exc}")
+                self._stop.wait(delay)

@@ -7,6 +7,10 @@ A rule set is four aligned tensors — ``metric_row [R]``, ``op_id [R]``,
 compare/select pass over the ``[M, N]`` metric matrix.  A node takes part
 in a rule only when it is present in that rule's metric; violation is the
 OR across rules.  Plain PyTorch on whatever device the inputs live on.
+
+:func:`violated_nodes` counts its calls in its ``CALLS`` attribute, as the
+functions of ``ops/scoring.py`` do, so a caller can show that the
+deschedule enforcer and the planner went through it.
 """
 
 from __future__ import annotations
@@ -14,8 +18,6 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
-
-from platform_aware_scheduling_tpu_torch.ops import i64
 
 OP_LESS_THAN = 0
 OP_GREATER_THAN = 1
@@ -38,12 +40,14 @@ def rule_matches(
     value: torch.Tensor, op_id: torch.Tensor, target: torch.Tensor
 ) -> torch.Tensor:
     """``value <op> target`` elementwise; broadcastable.  An unknown
-    operator id falls to the Equals branch, as in the JAX package."""
-    sign = i64.cmp(value, target)
+    operator id falls to the Equals branch, as in the JAX package.  The
+    GPU compares int64 natively, so each operator is one compare (the
+    JAX package goes through ``i64.cmp`` on hi/lo pairs); fewer ops also
+    mean fewer interpreter-lock handoffs when another thread is busy."""
     return torch.where(
         op_id == OP_LESS_THAN,
-        sign == -1,
-        torch.where(op_id == OP_GREATER_THAN, sign == 1, sign == 0),
+        value < target,
+        torch.where(op_id == OP_GREATER_THAN, value > target, value == target),
     )
 
 
@@ -65,7 +69,11 @@ def violated_nodes(
     metric_values: torch.Tensor, metric_present: torch.Tensor, rules: RuleSet
 ) -> torch.Tensor:
     """OR-of-rules violation mask ``[N]``."""
+    violated_nodes.CALLS += 1
     return evaluate_rules(metric_values, metric_present, rules).any(dim=0)
+
+
+violated_nodes.CALLS = 0
 
 
 def first_violated_rule(

@@ -238,10 +238,18 @@ class TensorStateMirror:
             self._notify()
 
     def _metric_write_locked(self, metric_name: str, info) -> bool:
+        # the fixed-point conversion runs before the lock: it is most of a
+        # write's work, and readers (the deschedule evaluation, the verbs'
+        # warm passes) must not queue behind it
+        converted = (
+            None
+            if info is None
+            else [(node_name, *metric.value.milli_value_exact()) for node_name, metric in info.items()]
+        )
         with self._lock:
             shape_before = self._values.shape
             row = self._intern_metric(metric_name)
-            if info is None:
+            if converted is None:
                 if self._values.shape != shape_before:
                     self._version += 1
                     return True
@@ -251,9 +259,8 @@ class TensorStateMirror:
             # steady-state values must not invalidate plans
             host_only = False
             staged: Dict[int, int] = {}
-            for node_name, metric in info.items():
+            for node_name, milli, exact in converted:
                 col = self._intern_node(node_name)
-                milli, exact = metric.value.milli_value_exact()
                 if not exact:
                     host_only = True
                 staged[col] = milli
@@ -378,6 +385,17 @@ class TensorStateMirror:
         """Publish (and memoize per version) the device snapshot."""
         with self._lock:
             return self._view_locked()
+
+    def policy_with_view_by_name(
+        self, name: str
+    ) -> Tuple[Optional[CompiledPolicy], Optional[DeviceView]]:
+        """Lookup by bare policy name: strategies registered with the
+        enforcer carry only the name, not the namespace."""
+        with self._lock:
+            for (_ns, pname), compiled in self._policies.items():
+                if pname == name:
+                    return compiled, self._view_locked()
+        return None, None
 
     def policies_with_view(
         self, keys: Sequence[Tuple[str, str]]

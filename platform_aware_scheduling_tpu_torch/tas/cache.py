@@ -21,6 +21,7 @@ import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+from platform_aware_scheduling_tpu_torch.kube.retry import CircuitOpenError
 from platform_aware_scheduling_tpu_torch.tas.metrics import Client, NodeMetricsInfo
 from platform_aware_scheduling_tpu_torch.tas.policy.v1alpha1 import TASPolicy
 from platform_aware_scheduling_tpu_torch.utils import klog
@@ -35,14 +36,16 @@ class CacheMissError(KeyError):
 
 
 def _refresh_error_reason(exc: BaseException) -> str:
-    """Bounded ``reason`` label for refresh errors: throttled /
-    server_error / network / no_data / fetch_error — never a raw message.
-    Walks the ``__cause__`` chain first, since clients wrap the failure
-    that carries the status."""
+    """Bounded ``reason`` label for refresh errors: circuit_open /
+    throttled / server_error / network / no_data / fetch_error — never a
+    raw message.  Walks the ``__cause__`` chain first, since clients wrap
+    the failure that carries the status."""
     seen = 0
     while exc.__cause__ is not None and seen < 8:
         exc = exc.__cause__
         seen += 1
+    if isinstance(exc, CircuitOpenError):
+        return "circuit_open"
     status = getattr(exc, "status", None)
     if isinstance(status, int) and status:
         if status == 429:

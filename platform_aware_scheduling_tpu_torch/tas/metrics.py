@@ -2,14 +2,14 @@
 ``platform_aware_scheduling_tpu/tas/metrics.py``).
 
 ``NodeMetric`` carries timestamp / window / value; a ``Client`` fetches
-one named metric for every node.  The live custom-metrics client needs
-the kube layer and comes with it in a later slice.
+one named metric for every node: ``CustomMetricsClient`` from the kube
+custom-metrics API, ``DummyMetricsClient`` from a dict.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Protocol
+from typing import Any, Dict, Protocol
 
 from platform_aware_scheduling_tpu_torch.utils.quantity import Quantity
 
@@ -35,6 +35,39 @@ class Client(Protocol):
     """Knows how to fetch one named metric for every node."""
 
     def get_node_metric(self, metric_name: str) -> NodeMetricsInfo: ...
+
+
+def wrap_metrics(metric_value_list: Dict[str, Any]) -> NodeMetricsInfo:
+    """MetricValueList -> NodeMetricsInfo; the window defaults to one
+    minute when ``windowSeconds`` is absent."""
+    result: NodeMetricsInfo = {}
+    for item in metric_value_list.get("items") or []:
+        window = item.get("windowSeconds")
+        result[(item.get("describedObject") or {}).get("name", "")] = NodeMetric(
+            value=Quantity(str(item.get("value", "0"))),
+            timestamp=item.get("timestamp", ""),
+            window_seconds=float(window) if window is not None else 60.0,
+        )
+    return result
+
+
+class CustomMetricsClient:
+    """Live client over the kube custom-metrics API: root-scoped node
+    metrics with empty selectors."""
+
+    def __init__(self, kube_client):
+        self._kube = kube_client
+
+    def get_node_metric(self, metric_name: str) -> NodeMetricsInfo:
+        try:
+            value_list = self._kube.get_node_custom_metric(metric_name)
+        except Exception as exc:
+            raise MetricsError(
+                "unable to fetch metrics from custom metrics API: " + str(exc)
+            ) from exc
+        if not (value_list.get("items") or []):
+            raise MetricsError("no metrics returned from custom metrics API")
+        return wrap_metrics(value_list)
 
 
 class DummyMetricsClient:

@@ -10,6 +10,9 @@ and the caller falls back to the per-request path.
 
 The solve runs on the mirror's device: on a GPU through the hand-written
 greedy-assign kernel.  Only ``solver="greedy"`` is ported so far.
+:meth:`BatchPlanner.watch` feeds the pending set and the per-node
+capacity from pod and node informers, so a pod the scheduler bound leaves
+the pending set and takes its node's slot in the next solve.
 """
 
 from __future__ import annotations
@@ -20,7 +23,12 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from platform_aware_scheduling_tpu_torch.kube.objects import Pod, object_key
+from platform_aware_scheduling_tpu_torch.kube.informer import (
+    DeletedFinalStateUnknown,
+    Informer,
+    ListWatch,
+)
+from platform_aware_scheduling_tpu_torch.kube.objects import Node, Pod, object_key
 from platform_aware_scheduling_tpu_torch.models.batch_scheduler import (
     ClusterState,
     PendingPods,
@@ -44,6 +52,20 @@ from platform_aware_scheduling_tpu_torch.utils.quantity import Quantity
 
 TAS_POLICY_LABEL = "telemetry-policy"
 DEFAULT_NODE_CAPACITY = 110  # kubelet's default max pods per node
+
+
+class _InformerGroup:
+    """Stop-handle over the planner's pod and node informers."""
+
+    def __init__(self, *informers):
+        self.informers = informers
+
+    def stop(self) -> None:
+        for informer in self.informers:
+            informer.stop()
+
+    def wait_for_cache_sync(self, timeout: float = 30.0) -> bool:
+        return all(i.wait_for_cache_sync(timeout) for i in self.informers)
 
 
 class SolveInputs(NamedTuple):
@@ -91,6 +113,8 @@ class BatchPlanner:
         self._node_alloc: Dict[str, int] = {}
         self._bound_pods: Dict[str, str] = {}  # pod key -> node name
         self._bound_counts: Dict[str, int] = {}
+        #: the pod and node informers once :meth:`watch` starts them
+        self.feed: Optional[_InformerGroup] = None
 
     # -- pending-set maintenance ----------------------------------------------
 
@@ -111,6 +135,11 @@ class BatchPlanner:
     def pending_count(self) -> int:
         with self._lock:
             return len(self._pending)
+
+    def pending_keys(self) -> List[str]:
+        """The pending set's pod keys (``namespace&name``), in solve order."""
+        with self._lock:
+            return list(self._pending)
 
     # -- cluster capacity feed ---------------------------------------------------
 
@@ -280,6 +309,63 @@ class BatchPlanner:
         if version != self.mirror.version:
             return None  # cluster state moved since the solve
         return node
+
+    # -- pending-pod feed -------------------------------------------------------
+
+    def watch(self, kube_client) -> _InformerGroup:
+        """Informers over pods (the pending set and the bound counts per
+        node) and nodes (allocatable pod slots); returns a handle with
+        ``.stop()`` and ``.wait_for_cache_sync()``."""
+
+        def on_event(pod: Pod) -> None:
+            self.pod_observed(pod)
+            if TAS_POLICY_LABEL not in pod.get_labels():
+                # the label may have been removed while the pod was pending
+                self.pod_removed(pod)
+                return
+            if pod.spec_node_name or pod.phase in ("Succeeded", "Failed"):
+                self.pod_removed(pod)
+            else:
+                self.pod_added(pod)
+
+        def on_delete(obj) -> None:
+            if isinstance(obj, DeletedFinalStateUnknown):
+                obj = obj.obj
+            if isinstance(obj, Pod):
+                self.pod_observed(obj, deleted=True)
+                self.pod_removed(obj)
+
+        pod_informer = Informer(
+            ListWatch(
+                lambda: (kube_client.list_pods(), ""),
+                lambda rv: ((etype, Pod(raw)) for etype, raw in kube_client.watch_pods()),
+                object_key,
+            ),
+            on_add=on_event,
+            on_update=lambda _old, new: on_event(new),
+            on_delete=on_delete,
+        )
+
+        def on_node_delete(obj) -> None:
+            if isinstance(obj, DeletedFinalStateUnknown):
+                obj = obj.obj
+            if isinstance(obj, Node):
+                self.node_changed(obj, deleted=True)
+
+        node_informer = Informer(
+            ListWatch(
+                lambda: (kube_client.list_nodes(), ""),
+                lambda rv: ((etype, Node(raw)) for etype, raw in kube_client.watch_nodes()),
+                lambda node: node.name,
+            ),
+            on_add=self.node_changed,
+            on_update=lambda _old, new: self.node_changed(new),
+            on_delete=on_node_delete,
+        )
+        pod_informer.start()
+        node_informer.start()
+        self.feed = _InformerGroup(pod_informer, node_informer)
+        return self.feed
 
     # -- background loop -------------------------------------------------------
 

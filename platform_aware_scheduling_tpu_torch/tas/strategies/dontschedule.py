@@ -1,10 +1,9 @@
 """dontschedule strategy: nodes violating any rule are filtered out.
 
-The port's copy of the Filter part of
+The port's copy of
 ``platform_aware_scheduling_tpu/tas/strategies/dontschedule.py``:
 OR-semantics across rules, a node violating ANY rule is in the violation
-set.  Enforcement and cleanup (a no-op for this strategy) come with the
-enforcer.
+set.  Its enforcement and cleanup do nothing.
 """
 
 from __future__ import annotations
@@ -78,3 +77,22 @@ class Strategy:
                 labels={"strategy": STRATEGY_TYPE},
             )
         return violating
+
+    def enforce(self, enforcer, cache) -> int:
+        """Nothing to enforce: the verbs filter, nothing is labelled."""
+        return 0
+
+    def cleanup(self, enforcer, policy_name: str) -> None:
+        return None
+
+    def strategy_type(self) -> str:
+        return STRATEGY_TYPE
+
+    def equals(self, other) -> bool:
+        return isinstance(other, Strategy) and core.rules_equal(self, other)
+
+    def get_policy_name(self) -> str:
+        return self.policy_name
+
+    def set_policy_name(self, name: str) -> None:
+        self.policy_name = name

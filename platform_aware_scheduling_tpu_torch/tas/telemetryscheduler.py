@@ -216,17 +216,18 @@ class MetricsExtender:
             with span.stage("encode"):
                 body = result.to_json()
             path = str(span.attrs.get("filter_cache", "exact"))
-            decisions.DECISIONS.record_filter(
-                request_id=span.trace_id,
-                pod_namespace=args.pod.namespace,
-                pod_name=args.pod.name,
-                policy=args.pod.get_labels().get(TAS_POLICY_LABEL, ""),
-                path=path,
-                candidates=len(self._candidate_names(args)),
-                filtered=len(result.failed_nodes),
-                violating=dict(result.failed_nodes),
-                violating_scope="request",
-            )
+            if decisions.DECISIONS.enabled:
+                decisions.DECISIONS.record_filter(
+                    request_id=span.trace_id,
+                    pod_namespace=args.pod.namespace,
+                    pod_name=args.pod.name,
+                    policy=args.pod.get_labels().get(TAS_POLICY_LABEL, ""),
+                    path=path,
+                    candidates=len(self._candidate_names(args)),
+                    filtered=len(result.failed_nodes),
+                    violating=dict(result.failed_nodes),
+                    violating_scope="request",
+                )
             events.JOURNAL.publish(
                 "verdict",
                 "filter",
@@ -241,8 +242,8 @@ class MetricsExtender:
     def bind(self, request: HTTPRequest) -> HTTPResponse:
         """TAS does not bind: always 404.  The body (kube-scheduler POSTs
         BindingArgs regardless) is outcome feedback that closes the pod's
-        open decision records."""
-        if request.body:
+        open decision records; with the decision log off it is not read."""
+        if decisions.DECISIONS.enabled and request.body:
             try:
                 args = BindingArgs.from_json(request.body)
                 if args.pod_name and args.node:
@@ -279,6 +280,8 @@ class MetricsExtender:
         """One Prioritize decision record: device-path records reference
         the shared per-state score head and ranking, host-path records
         copy the top of their own result.  Never raises into the verb."""
+        if not decisions.DECISIONS.enabled:
+            return
         try:
             head: List = []
             ranked = None

@@ -229,6 +229,7 @@ class DecisionLog:
 
     def __init__(self, capacity: int = 512, clock: Callable[[], float] = time.time):
         self.capacity = max(1, capacity)
+        self.enabled = True
         self._clock = clock
         self._lock = threading.Lock()
         self._records: deque = deque()
@@ -236,6 +237,20 @@ class DecisionLog:
         self._seq = 0
         self._recorded_total = 0
         self._open = 0
+
+    def configure(self, enabled: Optional[bool] = None, capacity: Optional[int] = None) -> None:
+        """Apply ``--decisionLog`` / ``--decisionLogSize``; empties the ring
+        (its records were kept under the old retention)."""
+        with self._lock:
+            if capacity is not None:
+                self.capacity = max(1, int(capacity))
+            if enabled is not None:
+                self.enabled = bool(enabled)
+            self._records.clear()
+            self._open_by_pod.clear()
+            self._open = 0
+            self._recorded_total = 0
+        trace.COUNTERS.set_gauge("pas_decision_open", 0.0)
 
     def clear(self) -> None:
         """Empty the ring and its open index."""
@@ -253,6 +268,8 @@ class DecisionLog:
     # -- recording -------------------------------------------------------------
 
     def add(self, record: DecisionRecord) -> None:
+        if not self.enabled:
+            return
         evicted_open = 0
         with self._lock:
             self._seq += 1
@@ -290,6 +307,8 @@ class DecisionLog:
     ) -> None:
         """One Filter decision; ``filtered`` is the request's exact
         failed-node count, counted under ``reason_code``."""
+        if not self.enabled:
+            return
         record = DecisionRecord(verb=verb, **kwargs)
         self.add(record)
         if record.filtered:
@@ -300,6 +319,8 @@ class DecisionLog:
             )
 
     def record_prioritize(self, verb: str = "prioritize", **kwargs) -> None:
+        if not self.enabled:
+            return
         self.add(DecisionRecord(verb=verb, **kwargs))
 
     # -- outcome feedback ------------------------------------------------------
@@ -308,6 +329,8 @@ class DecisionLog:
         """A pod-bind observation: close the pod's open records, scoring
         the chosen node's rank in the Prioritize ordering and whether
         Filter had marked it violating."""
+        if not self.enabled:
+            return
         key = f"{namespace}/{name}"
         bound_at = self._clock()
         violated = False
@@ -361,7 +384,7 @@ class DecisionLog:
             if len(selected) >= max(1, limit):
                 break
         return {
-            "enabled": True,  # the JAX log's flag; the port's log is always on
+            "enabled": self.enabled,
             "capacity": self.capacity,
             "recorded_total": recorded_total,
             "open": open_count,
@@ -375,5 +398,6 @@ class DecisionLog:
         return json.dumps(self.snapshot(pod=pod, verb=verb, limit=limit)).encode() + b"\n"
 
 
-#: the process-wide log every verb records into
+#: the process-wide log every verb records into; ``--decisionLog=off``
+#: flips ``enabled`` through :meth:`DecisionLog.configure`
 DECISIONS = DecisionLog()

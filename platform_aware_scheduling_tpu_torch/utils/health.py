@@ -84,3 +84,13 @@ def probe_for(scheduler) -> ReadinessProbe:
             klog.error("readiness_conditions failed: %s", exc)
             probe.register("readiness_conditions", lambda reason=reason: (False, reason))
     return probe
+
+
+def informer_synced(informer, name: str) -> Check:
+    """A condition over an Informer's ``has_synced`` (kube/informer.py)."""
+
+    def check() -> Tuple[bool, str]:
+        ok = bool(informer.has_synced())
+        return ok, ("synced" if ok else f"{name} cache not yet synced")
+
+    return check

@@ -62,6 +62,17 @@ declare("pas_telemetry_refresh_total", "counter", "Telemetry cache refresh passe
 declare("pas_telemetry_refresh_errors_total", "counter", "Individual metric fetch failures across refresh passes.")
 declare("pas_strategy_evaluations_total", "counter", "Strategy violation evaluations (label: strategy).")
 declare("pas_strategy_violations_total", "counter", "Violating nodes found by strategy evaluations (label: strategy).")
+declare("pas_strategy_enforcements_total", "counter", "Enforcement passes completed without error (label: strategy).")
+declare("pas_deschedule_host_fallback_total", "counter", "Deschedule evaluations that fell back from the mirror's device to the host path while a mirror was attached.")
+# controller plumbing (kube/informer.py; named instances only)
+declare("pas_informer_relists_total", "counter", "Informer list/re-list passes started (label: informer).")
+declare("pas_informer_watch_errors_total", "counter", "Informer watch streams that broke and forced a re-list (label: informer).")
+declare("pas_informer_synced", "gauge", "1 once the informer's initial list has delivered (label: informer).")
+# fault-tolerant kube and metrics clients (kube/retry.py)
+declare("pas_kube_retry_total", "counter", "API-call retries performed by the fault-tolerant client (labels: verb, reason in throttled/server_error/network/api_error).")
+declare("pas_kube_giveup_total", "counter", "API calls abandoned after exhausting the retry budget or deadline (label: verb).")
+declare("pas_circuit_state", "gauge", "Circuit-breaker state per endpoint group: 0 closed, 1 half-open, 2 open (label: group).")
+declare("pas_circuit_transitions_total", "counter", "Circuit-breaker state transitions (labels: group, to).")
 declare("pas_decision_records_total", "counter", "Scheduling decisions recorded into the decision log (label: verb).")
 declare("pas_decision_filtered_nodes_total", "counter", "Nodes filtered out of scheduling decisions, by reason class (label: reason).")
 declare("pas_decision_open", "gauge", "Decision records currently awaiting outcome feedback (pod bind).")

@@ -83,6 +83,52 @@ def test_import_pin_covers_the_verb_modules(module):
     assert module in {name for _path, name in _port_modules()}
 
 
+SERVICE_MODULES = [
+    f"{PORT_ROOT.name}.{name}"
+    for name in (
+        "cmd",
+        "cmd.common",
+        "cmd.tas",
+        "kube.client",
+        "kube.informer",
+        "kube.retry",
+        "tas.controller",
+        "tas.strategies.deschedule",
+        "tas.strategies.scheduleonmetric",
+        "testing",
+        "testing.builders",
+        "testing.fake_kube",
+        "utils.duration",
+        "utils.gctuning",
+    )
+]
+
+
+@pytest.mark.parametrize("module", SERVICE_MODULES)
+def test_import_pin_covers_the_service_modules(module):
+    """The service main's modules are among those the import pin loads."""
+    assert module in {name for _path, name in _port_modules()}
+
+
+@pytest.mark.parametrize("package", ["cmd", "testing"])
+def test_service_packages_pull_in_no_jax(package):
+    """``cmd/`` and ``testing/`` alone, in a fresh interpreter: the smoke
+    run imports them without the rest of the repo's tests."""
+    modules = [m for m in SERVICE_MODULES if m.split(".")[1] == package]
+    code = (
+        "import importlib, sys\n"
+        f"for name in {modules!r}:\n"
+        "    importlib.import_module(name)\n"
+        f"print(sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO_ROOT, env=env, capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+
+
 def test_no_source_imports_the_jax_package():
     offenders = []
     for path, _name in _port_modules():

@@ -175,3 +175,29 @@ class TestCache:
             pair.cache.counters.get("pas_telemetry_refresh_errors_total", {"reason": "no_data"})
             == 1
         )
+
+
+QUANTITY_TEXTS = [
+    "0", "0m", "110", "12345m", "00012m", "99999m", "1000m", "9223372036854775807",
+    "9223372036854775807m", "9223372036854775808m", "9223372036854776", "99999999999999999999m",
+    "+5", "-5m", " 7", "7 ", "1.5", "0.001", "5k", "1Ki", "1e3", "12M", "3u", "m", "", "1.2.3", "١٢",
+]
+
+
+@pytest.mark.parametrize("text", QUANTITY_TEXTS)
+def test_quantity_parse_matches_the_jax_quantity(text):
+    """The plain-integer parse the mirror's refresh takes agrees with the
+    general grammar and with the JAX package's Quantity: value, the
+    fixed-point milli form the mirror stores, int64 view and text."""
+    try:
+        want = JaxQuantity(text)
+    except ValueError:
+        with pytest.raises(ValueError):
+            Quantity(text)
+        return
+    got = Quantity(text)
+    assert got.value == want.value
+    assert got.milli_value_exact() == want.milli_value_exact()
+    assert got.as_int64() == want.as_int64()
+    assert str(got) == str(want)
+    assert got.cmp_int64(97) == want.cmp_int64(97)
