@@ -1052,16 +1052,18 @@ def run_service(torch, np, device: str) -> dict:
     fault-tolerant client, and ``build_server`` on 127.0.0.1, over the
     port's fake API server.  Policies arrive as TASPolicy objects through
     the CRD informer; metrics through ``CustomMetricsClient``; a churn
-    thread moves 30% of the values each sync period.  Enforcement cycles
-    and replans are serialised by the harness (never by the service), so
-    each one's counter deltas are its own."""
+    thread moves 30% of the values each sync period.  Nothing serialises
+    the service's threads: each enforcement cycle's and replan's counter
+    deltas are the calls its own thread made."""
     import http.client
     import threading
 
     from platform_aware_scheduling_tpu_torch.cmd import common, tas
     from platform_aware_scheduling_tpu_torch.extender.server import HTTPRequest, Server
     from platform_aware_scheduling_tpu_torch.kube.objects import object_key
+    from platform_aware_scheduling_tpu_torch.models import batch_scheduler
     from platform_aware_scheduling_tpu_torch.ops import rules as rule_ops
+    from platform_aware_scheduling_tpu_torch.ops import scoring as scoring_ops
     from platform_aware_scheduling_tpu_torch.ops.cuda_assign import greedy_assign_cuda
     from platform_aware_scheduling_tpu_torch.ops.state import TensorStateMirror
     from platform_aware_scheduling_tpu_torch.tas.cache import AutoUpdatingCache, CacheMissError
@@ -1082,6 +1084,128 @@ def run_service(torch, np, device: str) -> dict:
     rng, nodes, values, out["bound_pods"] = build_service_world(np, kube)
     out["seed_s"] = time.perf_counter() - start
     pols = service_policies()
+
+    # -- instrumentation: each enforcement cycle, replan and refresh pass -----
+    # A cycle is one deschedule Strategy.enforce: it evaluates every
+    # registered deschedule policy once, lists the nodes whose labels can
+    # change and patches them.  The enforcement loop runs one cycle per
+    # registered deschedule strategy each period (the reference's loop), so
+    # a period holds ``policies`` cycles.  The service's threads run as
+    # ``main`` runs them, side by side: each call of the device functions,
+    # of the strategies' evaluations and of the API server's node patch is
+    # counted for the thread that made it, so a cycle's or a replan's
+    # deltas are its own while the verbs, the warm passes, the controller
+    # and the other loops run beside it.
+    per_thread = {}  # (what, thread id) -> calls; each key has one writer
+
+    def counted(what, fn, when=lambda *a: True):
+        def wrapper(*a, **kw):
+            if when(*a):
+                key = (what, threading.get_ident())
+                per_thread[key] = per_thread.get(key, 0) + 1
+            return fn(*a, **kw)
+
+        return wrapper
+
+    def mine(what) -> int:
+        return per_thread.get((what, threading.get_ident()), 0)
+
+    def everyone(what) -> int:
+        return sum(n for (w, _tid), n in list(per_thread.items()) if w == what)
+
+    # the loops' work in flight: once ``stop`` is set no new pass starts,
+    # and the phase returns only after the last one ended, so no loop is
+    # still inside torch when the interpreter exits
+    busy = threading.Condition()
+    in_flight = [0]
+
+    def begin() -> bool:
+        with busy:
+            if stop.is_set():
+                return False
+            in_flight[0] += 1
+            return True
+
+    def end() -> None:
+        with busy:
+            in_flight[0] -= 1
+            busy.notify_all()
+
+    cycles, periods, replans, refreshes = [], [], [], []
+    stages = threading.local()  # the running cycle's stage seconds, per thread
+    originals = {
+        name: getattr(deschedule.Strategy, name)
+        for name in ("enforce", "violated", "violated_device", "_node_status_for_strategy",
+                     "_nodes_needing_labels", "_update_node_labels")
+    }
+    # every module that calls violated_nodes binds it by name at import
+    callers = {module: module.violated_nodes for module in (deschedule, scoring_ops, batch_scheduler)}
+    # the greedy kernel's one caller dispatches to it for tensors on the
+    # card; the kernel's own counter is held to these dispatches' sum
+    greedy_assign = batch_scheduler.greedy_assign
+    # installed before ``assemble`` starts the loops, so every call of the
+    # phase is counted; the functions' own counters are held to the sum
+    calls_at_start = rule_ops.violated_nodes.CALLS
+    greedy_assign_cuda.LAUNCHES = 0
+    def staged(method, stage):
+        def wrapper(self, *a, **kw):
+            t = time.perf_counter()
+            try:
+                return method(self, *a, **kw)
+            finally:
+                stages.seconds[stage] += time.perf_counter() - t
+
+        return wrapper
+
+    def timed_cycle(self, enforcer_, cache_):
+        if not begin():
+            return 0
+        try:
+            return _timed_cycle(self, enforcer_, cache_)
+        finally:
+            end()
+
+    def _timed_cycle(self, enforcer_, cache_):
+        # the enforcer holds its registry lock across the pass, so this
+        # count holds for the whole cycle
+        policies = len(enforcer.registered_strategies.get(deschedule.STRATEGY_TYPE, {}))
+        before = {what: mine(what) for what in ("violated_nodes", "violated_device", "violated", "patch_node")}
+        fallbacks = trace.COUNTERS.get("pas_deschedule_host_fallback_total")
+        stages.seconds = {"evaluate": 0.0, "list": 0.0, "patch": 0.0}
+        t0 = time.perf_counter()
+        try:
+            return originals["enforce"](self, enforcer_, cache_)
+        finally:
+            t1 = time.perf_counter()
+            delta = {what: mine(what) - n for what, n in before.items()}
+            cycles.append(
+                {
+                    "start": t0,
+                    "end": t1,
+                    "policies": policies,
+                    "evaluated": delta["violated_device"],
+                    "calls": delta["violated_nodes"],
+                    "host_calls": delta["violated"],
+                    "patches": delta["patch_node"],
+                    # the service-wide counter: its only writer is this
+                    # thread's deschedule evaluation
+                    "fallbacks": trace.COUNTERS.get("pas_deschedule_host_fallback_total") - fallbacks,
+                    "device": mirror.device.type,
+                    **stages.seconds,
+                }
+            )
+            del kube.node_patches[:]  # the record would grow by every patch of the phase
+
+    for name, stage in (("_node_status_for_strategy", "evaluate"), ("_nodes_needing_labels", "list"),
+                        ("_update_node_labels", "patch")):
+        setattr(deschedule.Strategy, name, staged(originals[name], stage))
+    deschedule.Strategy.enforce = timed_cycle
+    deschedule.Strategy.violated = counted("violated", originals["violated"])
+    deschedule.Strategy.violated_device = counted("violated_device", originals["violated_device"])
+    for module, fn in callers.items():
+        module.violated_nodes = counted("violated_nodes", fn)
+    batch_scheduler.greedy_assign = counted("greedy_assign_cuda", greedy_assign, lambda score, *a: score.is_cuda)
+    kube.patch_node = counted("patch_node", kube.patch_node)
 
     # the main's wiring: the fault-tolerant proxy from the default flags,
     # the metrics client over it, assemble, the GC posture, the server
@@ -1113,110 +1237,14 @@ def run_service(torch, np, device: str) -> dict:
         finally:
             conn.close()
 
-    # -- instrumentation: each enforcement cycle, replan and refresh pass -----
-    # A cycle is one deschedule Strategy.enforce: it evaluates every
-    # registered deschedule policy once, lists the nodes whose labels can
-    # change and patches them.  The enforcement loop runs one cycle per
-    # registered deschedule strategy each period (the reference's loop), so
-    # a period holds ``policies`` cycles.  The harness lock serialises the
-    # periods, the replans and the main thread's own device work, so each
-    # one's counter deltas are its own.
-    serial = threading.RLock()
-    # the loops' work in flight: once ``stop`` is set no new pass starts,
-    # and the phase returns only after the last one ended, so no loop is
-    # still inside torch when the interpreter exits
-    busy = threading.Condition()
-    in_flight = [0]
-
-    def begin() -> bool:
-        with busy:
-            if stop.is_set():
-                return False
-            in_flight[0] += 1
-            return True
-
-    def end() -> None:
-        with busy:
-            in_flight[0] -= 1
-            busy.notify_all()
-
-    cycles, periods, replans, refreshes = [], [], [], []
-    stage_s = {"evaluate": 0.0, "list": 0.0, "patch": 0.0}
-    enforcing = set()  # thread ids inside a cycle
-    host_calls = [0]
-    originals = {
-        name: getattr(deschedule.Strategy, name)
-        for name in ("enforce", "violated", "_node_status_for_strategy", "_nodes_needing_labels",
-                     "_update_node_labels")
-    }
-
-    def staged(method, stage):
-        def wrapper(self, *a, **kw):
-            t = time.perf_counter()
-            try:
-                return method(self, *a, **kw)
-            finally:
-                stage_s[stage] += time.perf_counter() - t
-
-        return wrapper
-
-    def counted_violated(self, cache_):
-        if threading.get_ident() in enforcing:
-            host_calls[0] += 1
-        return originals["violated"](self, cache_)
-
-    def timed_cycle(self, enforcer_, cache_):
-        if not begin():
-            return 0
-        try:
-            return _timed_cycle(self, enforcer_, cache_)
-        finally:
-            end()
-
-    def _timed_cycle(self, enforcer_, cache_):
-        with serial:
-            n = len(enforcer_.registered_strategies.get(deschedule.STRATEGY_TYPE, {}))
-            calls, patches, hosts = rule_ops.violated_nodes.CALLS, len(kube.node_patches), host_calls[0]
-            fallbacks = trace.COUNTERS.get("pas_deschedule_host_fallback_total")
-            for k in stage_s:
-                stage_s[k] = 0.0
-            enforcing.add(threading.get_ident())
-            t0 = time.perf_counter()
-            try:
-                return originals["enforce"](self, enforcer_, cache_)
-            finally:
-                t1 = time.perf_counter()
-                enforcing.discard(threading.get_ident())
-                cycles.append(
-                    {
-                        "start": t0,
-                        "end": t1,
-                        "policies": n,
-                        "calls": rule_ops.violated_nodes.CALLS - calls,
-                        "host_calls": host_calls[0] - hosts,
-                        "patches": len(kube.node_patches) - patches,
-                        "fallbacks": trace.COUNTERS.get("pas_deschedule_host_fallback_total") - fallbacks,
-                        "device": mirror.device.type,
-                        **dict(stage_s),
-                    }
-                )
-                del kube.node_patches[:]  # the record would grow by every patch of the phase
-
-    for name, stage in (("_node_status_for_strategy", "evaluate"), ("_nodes_needing_labels", "list"),
-                        ("_update_node_labels", "patch")):
-        setattr(deschedule.Strategy, name, staged(originals[name], stage))
-    deschedule.Strategy.enforce = timed_cycle
-    deschedule.Strategy.violated = counted_violated
-
     enforce_strategy = enforcer.enforce_strategy
 
     def timed_period(strategy_type, cache_):
         if strategy_type != deschedule.STRATEGY_TYPE:
             return enforce_strategy(strategy_type, cache_)
-        with serial:
-            t0 = time.perf_counter()
-            enforce_strategy(strategy_type, cache_)
-            periods.append({"start": t0, "end": time.perf_counter()})
+        t0 = time.perf_counter()
+        enforce_strategy(strategy_type, cache_)
+        periods.append({"start": t0, "end": time.perf_counter()})
 
     enforcer.enforce_strategy = timed_period
 
@@ -1239,24 +1267,23 @@ def run_service(torch, np, device: str) -> dict:
             end()
 
     def _timed_replan():
-        with serial:
-            launches, calls = greedy_assign_cuda.LAUNCHES, rule_ops.violated_nodes.CALLS
-            last_inputs.clear()
-            t0 = time.perf_counter()
-            planned = replan()
-            t1 = time.perf_counter()
-            replans.append(
-                {
-                    "start": t0,
-                    "end": t1,
-                    "planned": planned,
-                    "solved": "capacity" in last_inputs,
-                    "launches": greedy_assign_cuda.LAUNCHES - launches,
-                    "calls": rule_ops.violated_nodes.CALLS - calls,
-                    **last_inputs,
-                }
-            )
-            return planned
+        launches, calls = mine("greedy_assign_cuda"), mine("violated_nodes")
+        last_inputs.clear()
+        t0 = time.perf_counter()
+        planned = replan()
+        t1 = time.perf_counter()
+        replans.append(
+            {
+                "start": t0,
+                "end": t1,
+                "planned": planned,
+                "solved": "capacity" in last_inputs,
+                "launches": mine("greedy_assign_cuda") - launches,
+                "calls": mine("violated_nodes") - calls,
+                **last_inputs,
+            }
+        )
+        return planned
 
     planner.solve_inputs, planner.replan = recorded_inputs, timed_replan
 
@@ -1298,6 +1325,26 @@ def run_service(torch, np, device: str) -> dict:
 
     churner = threading.Thread(target=churn, daemon=True)
 
+    # the smoke's own heavy checks on the main thread (full listings, host
+    # evaluations, the CPU control) are no part of the service: they run
+    # in the gap after an enforcement period, and the worst cycle's line
+    # says how long it overlapped them all the same
+    checks = []
+
+    def between_periods():
+        """Return just after an enforcement period ends (the one in flight,
+        or else the next)."""
+        seen = len(periods)
+        wait_for(lambda: len(periods) > seen, 2 * period, "an enforcement period to end")
+
+    @contextlib.contextmanager
+    def checking():
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            checks.append({"start": t0, "end": time.perf_counter()})
+
     # full collections hold the GIL: each stalls every thread of the service
     full_collections, gc_started = [], []
 
@@ -1310,7 +1357,6 @@ def run_service(torch, np, device: str) -> dict:
                 full_collections.append({"start": t0, "end": time.perf_counter()})
 
     gc.callbacks.append(on_gc)
-    greedy_assign_cuda.LAUNCHES = 0
     try:
         # 1. the three informers' initial syncs, from the assemble call
         informers = {
@@ -1335,16 +1381,15 @@ def run_service(torch, np, device: str) -> dict:
 
         # 2. the policies through the CRD; each one's first Filter that
         # excludes exactly its dontschedule violators
-        with serial:
-            t_create = time.perf_counter()
-            for name, strategies in pols.items():
-                kube.create_taspolicy(make_policy(name, strategies=strategies))
-            wait_for(
-                lambda: len(enforcer.registered_strategies.get("deschedule", {})) == len(pols),
-                10,
-                "the controller to register the policies",
-                poll_s=0.001,
-            )
+        t_create = time.perf_counter()
+        for name, strategies in pols.items():
+            kube.create_taspolicy(make_policy(name, strategies=strategies))
+        wait_for(
+            lambda: len(enforcer.registered_strategies.get("deschedule", {})) == len(pols),
+            10,
+            "the controller to register the policies",
+            poll_s=0.001,
+        )
         propagation = {}
         expected = {name: np_violators(np, s["dontschedule"], values, nodes) for name, s in pols.items()}
 
@@ -1370,6 +1415,7 @@ def run_service(torch, np, device: str) -> dict:
         churner.join(timeout=30)
         check(not churner.is_alive(), "service: the churn thread did not stop")
         after(last_write[0])
+        between_periods()
 
         def labels_of():
             return {node.name: node.get_labels() for node in kube.list_nodes()}
@@ -1384,16 +1430,18 @@ def run_service(torch, np, device: str) -> dict:
             return violating == host == np_violators(np, rules_, values, nodes) and not stale, len(nulls)
 
         out["nulls"] = {}
-        labels = labels_of()
-        for name, strategies in pols.items():
-            ok, out["nulls"][name] = labels_match(name, strategies["deschedule"], labels)
+        with checking():
+            labels = labels_of()
+            matches = {name: labels_match(name, s["deschedule"], labels) for name, s in pols.items()}
+        for name, (ok, out["nulls"][name]) in matches.items():
             check(ok, f"service: {name}'s labels differ from the host evaluation after a quiescent cycle")
             check(out["nulls"][name] > 0, f"service: no node of {name} stopped violating and carries =null")
 
         # 4. the pending set, and the plan against a CPU planner (built below)
-        pending = [
-            p for p in kube.list_pods() if not p.spec_node_name and "telemetry-policy" in p.get_labels()
-        ]
+        with checking():
+            pending = [
+                p for p in kube.list_pods() if not p.spec_node_name and "telemetry-policy" in p.get_labels()
+            ]
         check(
             planner.pending_keys() == [object_key(p) for p in pending] and len(pending) == NUM_PODS,
             "service: the planner's pending set differs from the API server's pending pods",
@@ -1419,23 +1467,35 @@ def run_service(torch, np, device: str) -> dict:
             2 * period,
             "the pod informer to see the bindings",
         )
+        # the CPU control's pods and nodes (step 7), taken now, in a gap of
+        # their own: neither changes after the bindings
+        between_periods()
+        with checking():
+            control_cache = AutoUpdatingCache()
+            control_mirror = TensorStateMirror(device="cpu")
+            control_mirror.attach(control_cache)
+            control_planner = BatchPlanner(control_cache, control_mirror, device="cpu")
+            for node in kube.list_nodes():
+                control_planner.node_changed(node)
+            for pod in kube.list_pods():
+                control_planner.pod_observed(pod)
+                control_planner.pod_added(pod)
 
         # 6. the controller: update pol-0's deschedule target, delete pol-3
         updated_rules = [rule("metric0", "GreaterThan", UPDATED_DESCHEDULE_TARGET)]
-        with serial:
-            obj = kube.get_taspolicy("default", "pol-0")
-            obj["spec"]["strategies"]["deschedule"]["rules"] = updated_rules
-            t_update = time.perf_counter()
-            kube.update_taspolicy(obj)
-            wait_for(
-                lambda: any(
-                    s.rules[0].target == UPDATED_DESCHEDULE_TARGET
-                    for s in enforcer.registered_strategies["deschedule"].values()
-                ),
-                10,
-                "the controller to apply the update",
-                poll_s=0.001,
-            )
+        obj = kube.get_taspolicy("default", "pol-0")
+        obj["spec"]["strategies"]["deschedule"]["rules"] = updated_rules
+        t_update = time.perf_counter()
+        kube.update_taspolicy(obj)
+        wait_for(
+            lambda: any(
+                s.rules[0].target == UPDATED_DESCHEDULE_TARGET
+                for s in enforcer.registered_strategies["deschedule"].values()
+            ),
+            10,
+            "the controller to apply the update",
+            poll_s=0.001,
+        )
         # polled through the label selector (a few hundred nodes), not a
         # listing of all 10,000, for the same reason as above; the values no
         # longer churn, so the reference is fixed
@@ -1447,28 +1507,27 @@ def run_service(torch, np, device: str) -> dict:
             poll_s=0.05,
         )
         out["update_follow_s"] = time.perf_counter() - t_update
-        check(
-            labels_match("pol-0", updated_rules, labels_of())[0],
-            "service: pol-0's labels differ from the host evaluation after its update",
-        )
-        with serial:
-            kube.delete_taspolicy("default", "pol-3")
+        between_periods()
+        with checking():
+            pol0_ok = labels_match("pol-0", updated_rules, labels_of())[0]
+        check(pol0_ok, "service: pol-0's labels differ from the host evaluation after its update")
+        kube.delete_taspolicy("default", "pol-3")
 
-            def deleted():
-                try:
-                    cache.read_policy("default", "pol-3")
-                except CacheMissError:
-                    return True
-                return False
+        def deleted():
+            try:
+                cache.read_policy("default", "pol-3")
+            except CacheMissError:
+                return True
+            return False
 
-            wait_for(deleted, 10, "the controller to delete pol-3", poll_s=0.001)
+        wait_for(deleted, 10, "the controller to delete pol-3", poll_s=0.001)
         t_changed = time.perf_counter()
         remaining = {name: s for name, s in pols.items() if name != "pol-3"}
         remaining["pol-0"] = {**remaining["pol-0"], "deschedule": updated_rules}
-        check(
-            not any(lab.get("pol-3") == "violating" for lab in labels_of().values()),
-            "service: pol-3=violating labels survived its deletion",
-        )
+        between_periods()
+        with checking():
+            survived = [n for n, lab in labels_of().items() if lab.get("pol-3") == "violating"]
+        check(not survived, f"service: pol-3=violating labels survived its deletion on {len(survived)} nodes")
         want_metrics = {r["metricname"] for s in remaining.values() for rs in s.values() for r in rs}
         check(
             set(cache.registered_metric_names()) == want_metrics,
@@ -1487,13 +1546,10 @@ def run_service(torch, np, device: str) -> dict:
             "service: the next solve's capacity does not take the 20 bindings",
         )
 
-        # 7. a CPU control built from the API server's state: the same
-        # plan, and every verb answer byte for byte.  Its replan counts on
-        # violated_nodes too, so it holds the harness lock.
-        with serial:
-            control_cache = AutoUpdatingCache()
-            control_mirror = TensorStateMirror(device="cpu")
-            control_mirror.attach(control_cache)
+        # 7. the CPU control, from the API server's state: the same plan,
+        # and every verb answer byte for byte
+        between_periods()
+        with checking():
             for item in kube.list_taspolicies()["items"]:
                 policy = TASPolicy.from_obj(item)
                 control_cache.write_policy(policy.namespace, policy.name, policy)
@@ -1501,12 +1557,6 @@ def run_service(torch, np, device: str) -> dict:
                     for r in strat.rules:
                         control_cache.write_metric(r.metricname, None)
             control_cache.update_all_metrics(CustomMetricsClient(kube))
-            control_planner = BatchPlanner(control_cache, control_mirror, device="cpu")
-            for node in kube.list_nodes():
-                control_planner.node_changed(node)
-            for pod in kube.list_pods():
-                control_planner.pod_observed(pod)
-                control_planner.pod_added(pod)
             control_planner.replan()
         still_pending = [p for p in pending if object_key(p) not in gone]
         check(
@@ -1527,9 +1577,10 @@ def run_service(torch, np, device: str) -> dict:
         check(len(mix) == 16, f"service: {len(mix)} requests in the mix")
         for verb, body in mix:
             got = send(verb, body)
-            want_resp = control.route(
-                HTTPRequest("POST", f"/scheduler/{verb}", {"Content-Type": "application/json"}, body)
-            )
+            with checking():
+                want_resp = control.route(
+                    HTTPRequest("POST", f"/scheduler/{verb}", {"Content-Type": "application/json"}, body)
+                )
             check(got == (want_resp.status, want_resp.body), f"service {verb}: differs from the CPU control")
         deleted_pod = by_policy["pol-3"][0].name
         check(
@@ -1551,24 +1602,42 @@ def run_service(torch, np, device: str) -> dict:
         gc.callbacks.remove(on_gc)
         for name, method in originals.items():
             setattr(deschedule.Strategy, name, method)
+        for module, fn in callers.items():
+            module.violated_nodes = fn
+        batch_scheduler.greedy_assign = greedy_assign
+        del kube.patch_node
     out["launches"] = greedy_assign_cuda.LAUNCHES
 
+    # every call of the phase went through the per-thread counts
+    check(
+        rule_ops.violated_nodes.CALLS - calls_at_start == everyone("violated_nodes")
+        and out["launches"] == everyone("greedy_assign_cuda"),
+        "service: a violated_nodes call or greedy_assign launch was not counted for its thread",
+    )
     # the whole phase's cycles and replans, checked one by one
     check(cycles and periods and replans and refreshes, "service: no enforcement cycle, replan or refresh ran")
     for c in cycles:
         check(c["fallbacks"] == 0 and c["host_calls"] == 0, "service: the enforcer took the host path")
         check(c["device"] == device, f"service: a cycle evaluated on {c['device']}")
         check(
-            c["calls"] == c["policies"],
-            f"service: {c['calls']} violated_nodes calls in a cycle of {c['policies']} policies",
+            c["calls"] == c["evaluated"] == c["policies"],
+            f"service: {c['calls']} violated_nodes calls in a cycle that evaluated {c['evaluated']} of "
+            f"{c['policies']} policies",
         )
+    seen = {c["policies"] for c in cycles}
+    check({len(pols), len(pols) - 1} <= seen, f"service: cycles of {sorted(seen)} policies only")
     for r in replans:
         solves = 1 if r["solved"] else 0
         if device == "cuda":
             check(r["launches"] == solves, f"service: a replan launched greedy_assign {r['launches']} times")
         check(r["calls"] == solves, f"service: {r['calls']} violated_nodes calls in a replan")
     out.update(
-        cycles=cycles, periods=periods, replans=replans, refreshes=refreshes, full_collections=full_collections
+        cycles=cycles,
+        periods=periods,
+        replans=replans,
+        refreshes=refreshes,
+        full_collections=full_collections,
+        checks=checks,
     )
     return out
 
@@ -1612,7 +1681,8 @@ def overlap_s(a: dict, spans: list) -> float:
 
 def worst_cycle_line(s: dict, card: str) -> str:
     """The slowest enforcement cycle, split, with what ran beside it: a
-    refresh pass shares the interpreter, a full collection stops it."""
+    refresh pass and the smoke's own checks share the interpreter, a full
+    collection stops it."""
     cycles = [c for c in s["cycles"] if c["policies"]]
     worst = max(cycles, key=lambda c: c["end"] - c["start"])
     first = min(c["start"] for c in cycles)
@@ -1622,8 +1692,9 @@ def worst_cycle_line(s: dict, card: str) -> str:
         f"service worst cycle: {(worst['end'] - worst['start']) * 1e3:.3f} ms, "
         f"{worst['start'] - first:.3f} s into enforcement (device evaluation {worst['evaluate'] * 1e3:.3f} ms, "
         f"node listing {worst['list'] * 1e3:.3f} ms, patches {worst['patch'] * 1e3:.3f} ms, {worst['patches']} "
-        f"patches); beside it a refresh pass for {overlap_s(worst, s['refreshes']) * 1e3:.3f} ms and full "
-        f"collections for {overlap_s(worst, s['full_collections']) * 1e3:.3f} ms; GC posture applied after the "
+        f"patches); beside it a refresh pass for {overlap_s(worst, s['refreshes']) * 1e3:.3f} ms, full "
+        f"collections for {overlap_s(worst, s['full_collections']) * 1e3:.3f} ms and the smoke's own checks for "
+        f"{overlap_s(worst, s['checks']) * 1e3:.3f} ms; GC posture applied after the "
         f"initial syncs in {s['tune_s'] * 1e3:.3f} ms; full collections during enforcement {len(pauses)}"
         + (f" (max {max(pauses):.3f} ms)" if pauses else "")
         + f" [{card}]"

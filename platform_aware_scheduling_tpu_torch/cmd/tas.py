@@ -99,7 +99,6 @@ def assemble(
     metrics_client,
     sync_period_s: float,
     *,
-    enable_device_path: bool = True,
     enable_batch_planner: bool = False,
     batch_solver: str = "greedy",
     node_cache_capable: bool = False,
@@ -111,12 +110,10 @@ def assemble(
     loop.  Returns ``(cache, mirror, extender, controller, enforcer,
     stop)``; setting ``stop`` ends every background loop."""
     cache = AutoUpdatingCache()
-    mirror: Optional[TensorStateMirror] = None
-    if enable_device_path:
-        mirror = TensorStateMirror(device=device)
-        mirror.attach(cache)
+    mirror = TensorStateMirror(device=device)
+    mirror.attach(cache)
     planner = None
-    if enable_batch_planner and mirror is not None:
+    if enable_batch_planner:
         planner = BatchPlanner(cache, mirror, solver=batch_solver, device=mirror.device)
     extender = MetricsExtender(
         cache, mirror=mirror, planner=planner, node_cache_capable=node_cache_capable
@@ -149,6 +146,28 @@ def build_server(extender) -> Server:
     """The threaded HTTP front-end over an extender, ``/metrics`` serving
     the extender's exposition."""
     return Server(extender, metrics_provider=extender.metrics_text)
+
+
+def tune_after_initial_syncs(extender, controller, done: threading.Event) -> None:
+    """Apply the GC posture once the informers' initial lists are in.
+
+    They (every pod and node with the planner) are most of the heap, and
+    the posture freezes what exists when it is applied, so later full
+    collections skip them, where a collection over ~165,000 pods would
+    stall every thread for most of a second.  It runs beside ``main``, so
+    a signal during a slow initial list still ends the process at once;
+    after ``INITIAL_SYNC_WAIT_S`` (an unreachable API server) the posture
+    is applied all the same."""
+    informers = [controller.informer]
+    if extender.planner is not None:
+        informers += extender.planner.feed.informers
+    deadline = time.monotonic() + INITIAL_SYNC_WAIT_S
+    for informer in informers:
+        if done.is_set():
+            return
+        informer.wait_for_cache_sync(max(0.0, deadline - time.monotonic()))
+    if not done.is_set():
+        tune_for_serving()
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -212,18 +231,7 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     for sig in (signal.SIGINT, signal.SIGTERM):
         signal.signal(sig, lambda *_: done.set())
-    # The informers' initial lists (every pod and node with the planner)
-    # are most of the heap.  The GC posture freezes what exists when it is
-    # applied, so it waits for them: later full collections then skip
-    # them, where a collection over ~165,000 pods would stall every
-    # thread for most of a second.
-    informers = [controller.informer]
-    if extender.planner is not None:
-        informers += extender.planner.feed.informers
-    deadline = time.monotonic() + INITIAL_SYNC_WAIT_S
-    for informer in informers:
-        informer.wait_for_cache_sync(max(0.0, deadline - time.monotonic()))
-    tune_for_serving()
+    threading.Thread(target=tune_after_initial_syncs, args=(extender, controller, done), daemon=True).start()
     done.wait()
     stop.set()
     server.shutdown()

@@ -135,7 +135,13 @@ class TelemetryPolicyController:
 
     def on_update(self, old: TASPolicy, new: TASPolicy) -> None:
         """Swap the cached policy; per strategy type, remove the old
-        registration and metric references, then add the new."""
+        registration and metric references, then add the new.  All of it
+        under the enforcer's registry lock, so no enforcement pass sees the
+        new policy in the cache beside the old strategy."""
+        with self.enforcer.lock:
+            self._update(old, new)
+
+    def _update(self, old: TASPolicy, new: TASPolicy) -> None:
         pol = new.deep_copy()
         self.cache.write_policy(pol.namespace, pol.name, pol)
         klog.v(2).info_s(f"Policy: {pol.name} updated", component="controller")

@@ -103,12 +103,12 @@ class MetricEnforcer:
         # per-cycle violation subscribers ``(strategy_type, {node:
         # [policy names]})``, called at the end of every enforcement pass
         self.violation_observers: List = []
-        # the degraded-mode controller (evictions suspended while
-        # telemetry is stale) and the leader elector (label pass on the
-        # leader only): None until their planes are ported
-        self.degraded = None
-        self.leadership = None
-        self._lock = threading.RLock()
+        # the registry lock: held across each enforcement pass, across a
+        # removal and its cleanup, and by the controller across a policy
+        # update, so a pass sees a policy wholly before or wholly after
+        # any change (the JAX copy holds it only to read the registry;
+        # ROADMAP §C)
+        self.lock = threading.RLock()
 
     def publish_violations(self, strategy_type: str, violations: Dict[str, List[str]]) -> None:
         """Fan a finished enforcement cycle's violation map out to the
@@ -120,18 +120,18 @@ class MetricEnforcer:
                 klog.error("violation observer failed: %r", exc)
 
     def register_strategy_type(self, strategy: StrategyInterface) -> None:
-        with self._lock:
+        with self.lock:
             self.registered_strategies[strategy.strategy_type()] = {}
 
     def registered_strategy_types(self) -> List[str]:
-        with self._lock:
+        with self.lock:
             return list(self.registered_strategies)
 
     def add_strategy(self, strategy: StrategyInterface, strategy_type: str) -> None:
         """Dedup by ``equals``; only Enforceable strategies under a
         registered type are stored, keyed by ``id``, so a type's
         strategies enforce in the order they were added."""
-        with self._lock:
+        with self.lock:
             registry = self.registered_strategies.get(strategy_type)
             if registry is not None:
                 for existing in registry.values():
@@ -150,8 +150,10 @@ class MetricEnforcer:
                 registry[id(strategy)] = strategy
 
     def remove_strategy(self, strategy: StrategyInterface, strategy_type: str) -> None:
-        """Remove matching strategies, then run the strategy's cleanup."""
-        with self._lock:
+        """Remove matching strategies, then run the strategy's cleanup, both
+        under the registry lock: a pass in flight finishes first, so it
+        cannot label a node for the policy after its cleanup."""
+        with self.lock:
             registry = self.registered_strategies.get(strategy_type, {})
             for key, existing in list(registry.items()):
                 if existing.equals(strategy):
@@ -161,21 +163,22 @@ class MetricEnforcer:
                         "from strategy register",
                         component="controller",
                     )
-        if isinstance(strategy, Enforceable):
-            try:
-                strategy.cleanup(self, strategy.get_policy_name())
-            except Exception as exc:  # noqa: BLE001 — a failed cleanup is logged, as in the reference
-                klog.v(2).info_s(f"Failed to remove strategy: {exc}", component="controller")
-
-    def enforce_strategy(self, strategy_type: str, cache) -> None:
-        with self._lock:
-            strategies = list(self.registered_strategies.get(strategy_type, {}).values())
-        for strategy in strategies:
             if isinstance(strategy, Enforceable):
                 try:
-                    strategy.enforce(self, cache)
-                except Exception as exc:  # noqa: BLE001 — one strategy must not stop the others
-                    klog.error("Strategy was not enforceable. %s", exc)
+                    strategy.cleanup(self, strategy.get_policy_name())
+                except Exception as exc:  # noqa: BLE001 — a failed cleanup is logged, as in the reference
+                    klog.v(2).info_s(f"Failed to remove strategy: {exc}", component="controller")
+
+    def enforce_strategy(self, strategy_type: str, cache) -> None:
+        """One enforcement pass over a type's strategies, under the
+        registry lock."""
+        with self.lock:
+            for strategy in list(self.registered_strategies.get(strategy_type, {}).values()):
+                if isinstance(strategy, Enforceable):
+                    try:
+                        strategy.enforce(self, cache)
+                    except Exception as exc:  # noqa: BLE001 — one strategy must not stop the others
+                        klog.error("Strategy was not enforceable. %s", exc)
 
     def enforce_registered_strategies(
         self, cache, period_seconds: float, stop: Optional[threading.Event] = None

@@ -128,30 +128,9 @@ class Strategy:
 
     def enforce(self, enforcer: core.MetricEnforcer, cache) -> int:
         """Compute the violations of every registered deschedule policy,
-        list the nodes whose labels can change, and patch them.
-
-        With a leader elector on the enforcer, only the leader writes
-        labels; with a degraded-mode controller that suspends evictions,
-        nobody does.  Either way the violation map is still published."""
-        leadership = getattr(enforcer, "leadership", None)
-        if leadership is not None and not leadership.is_leader():
-            enforcer.publish_violations(STRATEGY_TYPE, self._node_status_for_strategy(enforcer, cache))
-            return 0
-        degraded = getattr(enforcer, "degraded", None)
-        if degraded is not None:
-            allowed, reason = degraded.evictions_allowed()
-            if not allowed:
-                klog.v(2).info_s(f"deschedule enforcement suspended: {reason}", component="controller")
-                # with the label pass skipped this read is the kube
-                # circuit's half-open probe
-                try:
-                    enforcer.kube_client.list_nodes()
-                except Exception as probe_exc:  # noqa: BLE001 — the probe only drives the breaker
-                    klog.v(4).info_s(f"suspended-cycle kube probe: {probe_exc}", component="controller")
-                enforcer.publish_violations(
-                    STRATEGY_TYPE, self._node_status_for_strategy(enforcer, cache)
-                )
-                return 0
+        list the nodes whose labels can change, and patch them.  The JAX
+        copy's leader-only and degraded-mode branches come back with the
+        HA and degraded-mode planes."""
         violations = self._node_status_for_strategy(enforcer, cache)
         try:
             nodes = self._nodes_needing_labels(enforcer, violations)

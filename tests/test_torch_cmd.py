@@ -181,6 +181,46 @@ def test_main_serves_tunes_after_the_initial_syncs_and_stops_on_sigterm(monkeypa
     assert conditions["policy_informer_synced"]["ok"] is True
 
 
+def test_main_stops_on_sigterm_while_an_initial_list_hangs(monkeypatch):
+    """An API server that never answers the pod list (the informers
+    never sync) does not hold ``main`` past SIGTERM, and the GC posture
+    is not applied to a service that is going away."""
+    kube = FakeKubeClient()
+    kube.add_node(builders.make_node("n0"))
+    released = threading.Event()
+    list_pods = kube.list_pods
+    kube.list_pods = lambda *args, **kwargs: (released.wait(60), list_pods(*args, **kwargs))[1]
+    parts, handlers, tuned = [], {}, []
+    real_assemble = tas.assemble
+
+    def assemble(*args, **kwargs):
+        parts.extend(real_assemble(*args, **kwargs))
+        return tuple(parts)
+
+    monkeypatch.setattr(tas, "resolve_device", lambda _device: torch.device("cpu"))
+    monkeypatch.setattr(tas, "get_kube_client", lambda _path: kube)
+    monkeypatch.setattr(tas, "assemble", assemble)
+    monkeypatch.setattr(tas, "tune_for_serving", lambda: tuned.append(True))
+    monkeypatch.setattr(tas.signal, "signal", lambda sig, handler: handlers.__setitem__(sig, handler))
+
+    def operator():
+        wait_until(lambda: tas.signal.SIGTERM in handlers, 30)
+        handlers[tas.signal.SIGTERM](tas.signal.SIGTERM, None)
+
+    threading.Thread(target=operator, daemon=True).start()
+    verbosity = tas.klog._verbosity
+    start = time.monotonic()
+    try:
+        assert tas.main(["--unsafe", "--port=0", "--syncPeriod=50ms", "--batchPlanner", "--nodeCacheCapable"]) == 0
+        assert time.monotonic() - start < 30
+    finally:
+        tas.klog.set_verbosity(verbosity)
+        released.set()
+        if parts:
+            parts[5].set()
+    assert tuned == []
+
+
 def test_decision_and_event_flags_configure_the_logs():
     try:
         args = tas.build_arg_parser().parse_args(

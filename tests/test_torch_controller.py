@@ -8,6 +8,7 @@ refcounts, the node labels and every patch sent must be equal.
 ``violated``."""
 
 import json
+import threading
 import time
 
 import numpy as np
@@ -362,6 +363,37 @@ class TestDescheduleEnforce:
         finally:
             stop.set()
 
+    def test_removal_waits_for_the_pass_in_flight(self):
+        """A policy removed while an enforcement pass is patching its
+        violators is cleaned up after that pass, so no ``=violating``
+        label outlives the policy.  (The JAX enforcer runs the cleanup
+        at once, and the pass then re-labels the node: ROADMAP §C.)"""
+        twins = self.setup()
+        twins.metric("health_metric", {"node1": "1", "node2": "0"})
+        side = twins.port
+        patching, release = threading.Event(), threading.Event()
+        patch_node = side.kube.patch_node
+
+        def held_patch(name, payload):
+            patching.set()
+            assert release.wait(10)
+            return patch_node(name, payload)
+
+        side.kube.patch_node = held_patch
+        passes = threading.Thread(target=side.enforcer.enforce_strategy, args=("deschedule", side.cache))
+        passes.start()
+        assert patching.wait(10)
+        side.kube.patch_node = patch_node
+        removal = threading.Thread(target=side.enforcer.remove_strategy, args=(side.strategy, "deschedule"))
+        removal.start()
+        removal.join(0.2)
+        assert removal.is_alive()  # waiting for the pass
+        release.set()
+        passes.join(10)
+        removal.join(10)
+        assert side.enforcer.registered_strategies["deschedule"] == {}
+        assert "deschedule-test" not in side.labels()["node1"]
+
     def test_registry_dedup_and_remove(self):
         for mod, core_mod, rule_cls in (
             (deschedule, core, v1alpha1.TASPolicyRule),
@@ -474,6 +506,48 @@ def test_violated_device_defers_to_the_host():
         mirror
     ) == {"a": None}
     assert mirror.policy_with_view_by_name("ghost") == (None, None)
+
+
+def test_update_during_a_pass_keeps_the_device_path():
+    """A policy update that lands while an enforcement pass runs waits for
+    the pass, so none of its cycles sets the old strategy against the new
+    compiled policy (a host fallback), and the next pass follows the
+    update on the mirror.  (The JAX controller writes the new policy
+    into the cache at once: ROADMAP §C.)"""
+    side = Side(False, mirror=True, nodes=("node1", "node2"))
+    objs = {name: make_policy(name, strategies={"deschedule": [rule("health", "GreaterThan", 5)]}) for name in ("pa", "pb")}
+    for obj in objs.values():
+        side.controller.on_add(v1alpha1.TASPolicy.from_obj(obj))
+    side.metric("health", {"node1": "9", "node2": "1"})
+    patching, release = threading.Event(), threading.Event()
+    patch_node = side.kube.patch_node
+
+    def held_patch(name, payload):
+        patching.set()
+        assert release.wait(10)
+        return patch_node(name, payload)
+
+    side.kube.patch_node = held_patch
+    fallbacks = trace.COUNTERS.get("pas_deschedule_host_fallback_total")
+    passes = threading.Thread(target=side.enforcer.enforce_strategy, args=("deschedule", side.cache))
+    passes.start()
+    assert patching.wait(10)
+    side.kube.patch_node = patch_node
+    updated = json.loads(json.dumps(objs["pa"]))
+    updated["spec"]["strategies"]["deschedule"]["rules"][0]["target"] = 0
+    update = threading.Thread(
+        target=side.controller.on_update,
+        args=(v1alpha1.TASPolicy.from_obj(objs["pa"]), v1alpha1.TASPolicy.from_obj(updated)),
+    )
+    update.start()
+    update.join(0.2)
+    assert update.is_alive()  # waiting for the pass
+    release.set()
+    passes.join(10)
+    update.join(10)
+    side.enforcer.enforce_strategy("deschedule", side.cache)
+    assert trace.COUNTERS.get("pas_deschedule_host_fallback_total") == fallbacks
+    assert {n: lab.get("pa") for n, lab in side.labels().items()} == {"node1": "violating", "node2": "violating"}
 
 
 def test_dontschedule_and_scheduleonmetric_enforce_nothing():
