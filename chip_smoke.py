@@ -14,7 +14,11 @@ each replan launched the kernel once.  Then it serves the TAS verbs
 CUDA-mirror extender steered by that planner, holds every response against
 a CPU-mirror extender and the host path, and times the verbs, holding
 verb p99, warm-pass and replan times to the limits ``PERF.md`` section 2
-sets.  Prints the card, the timings (the kernel's two stages and its
+sets.  Then the service phase runs the TAS service as ``cmd/tas.main``
+wires it (degraded mode, leader election) over the port's fake API server
+at the same size, and the faults phase adds a second replica and drives a
+metrics-API outage, a kube-API outage and a failover through a shared
+FaultPlan.  Prints the card, the timings (the kernel's two stages and its
 rescans at the main path's inputs and three others; the verbs' p50/p99,
 their slowest requests' stages and the warm passes), a
 ``{"kernels": [...]}`` line and, last,
@@ -33,6 +37,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 ROOT = Path(__file__).resolve().parent
 PACKAGE = "platform_aware_scheduling_tpu_torch"
@@ -967,6 +972,28 @@ UPDATED_DESCHEDULE_TARGET = 90
 BOUND_BY_SCHEDULER = 20
 ENFORCE_CYCLE_LIMIT_S = 1.0  # 20% of the sync period (PERF.md section 2)
 METRIC_STAMP = "2026-01-01T00:00:00Z"
+# the fault planes' windows, cut in time (not in the world) so the faults
+# phase fits its budget; both replicas run with them (PERF.md section 4)
+# --circuitResetTimeout, 30 s by default; over one sync period, so each
+# open circuit spans the start of an enforcement cycle
+CIRCUIT_RESET_S = 6.0
+LEASE_RENEW_S = 2.0  # --leaseRenewPeriod, a third of --leaseDuration by default
+LEASE_DURATION_S = 15.0  # --leaseDuration, its default
+LKG_MAX_AGE_S = 15.0  # degraded.lkg_max_age_s, 3 freshness bounds (45 s) by default
+FAULTS_TIMED_REQUESTS = 100
+
+
+def replica_flags(identity: str) -> list:
+    """The main's flags of one replica: last-known-good degraded mode and
+    leader election under ``identity``, with the cut windows above."""
+    return [
+        "--degradedMode=last-known-good",
+        "--leaderElect",
+        f"--replicaId={identity}",
+        f"--circuitResetTimeout={CIRCUIT_RESET_S:g}s",
+        f"--leaseDuration={LEASE_DURATION_S:g}s",
+        f"--leaseRenewPeriod={LEASE_RENEW_S:g}s",
+    ]
 
 
 def service_policies() -> dict:
@@ -1046,15 +1073,20 @@ def build_service_world(np, kube):
     return rng, nodes, values, bound_pods
 
 
-def run_service(torch, np, device: str) -> dict:
+def run_service(torch, np, device: str, faults: bool = True) -> dict:
     """The TAS service as ``cmd/tas.main`` wires it: ``assemble`` with the
     batch planner and nodeCacheCapable on ``device``, behind the
-    fault-tolerant client, and ``build_server`` on 127.0.0.1, over the
-    port's fake API server.  Policies arrive as TASPolicy objects through
-    the CRD informer; metrics through ``CustomMetricsClient``; a churn
-    thread moves 30% of the values each sync period.  Nothing serialises
-    the service's threads: each enforcement cycle's and replan's counter
-    deltas are the calls its own thread made."""
+    fault-tolerant client with its circuit breakers, last-known-good
+    degraded mode and leader election (replica ``replica-a``), and
+    ``build_server`` on 127.0.0.1, over the port's fake API server.  A
+    FaultyClient with an empty FaultPlan sits between the fault-tolerant
+    client and the fake.  Policies arrive as TASPolicy objects through the
+    CRD informer; metrics through ``CustomMetricsClient``; a churn thread
+    moves 30% of the values each sync period.  Nothing serialises the
+    service's threads: each enforcement cycle's and replan's counter
+    deltas are the calls its own thread made.  With ``faults``, the faults
+    phase (:func:`run_faults`) follows on the same world, and its counts
+    start from 0 at a point where no loop pass is in flight."""
     import http.client
     import threading
 
@@ -1067,6 +1099,7 @@ def run_service(torch, np, device: str) -> dict:
     from platform_aware_scheduling_tpu_torch.ops.cuda_assign import greedy_assign_cuda
     from platform_aware_scheduling_tpu_torch.ops.state import TensorStateMirror
     from platform_aware_scheduling_tpu_torch.tas.cache import AutoUpdatingCache, CacheMissError
+    from platform_aware_scheduling_tpu_torch.tas.degraded import DegradedModeController
     from platform_aware_scheduling_tpu_torch.tas.metrics import CustomMetricsClient
     from platform_aware_scheduling_tpu_torch.tas.planner import BatchPlanner
     from platform_aware_scheduling_tpu_torch.tas.policy.v1alpha1 import TASPolicy, TASPolicyRule
@@ -1074,12 +1107,15 @@ def run_service(torch, np, device: str) -> dict:
     from platform_aware_scheduling_tpu_torch.tas.telemetryscheduler import MetricsExtender
     from platform_aware_scheduling_tpu_torch.testing.builders import make_policy
     from platform_aware_scheduling_tpu_torch.testing.fake_kube import FakeKubeClient
+    from platform_aware_scheduling_tpu_torch.testing.faults import FaultPlan, FaultyClient
     from platform_aware_scheduling_tpu_torch.utils import trace
     from platform_aware_scheduling_tpu_torch.utils.gctuning import tune_for_serving
 
     period = SERVICE_SYNC_PERIOD_S
     out = {}
     kube = FakeKubeClient()
+    # the API server's faults, for every replica: empty until the faults phase
+    plan = FaultPlan(seed=SEED)
     start = time.perf_counter()
     rng, nodes, values, out["bound_pods"] = build_service_world(np, kube)
     out["seed_s"] = time.perf_counter() - start
@@ -1098,9 +1134,9 @@ def run_service(torch, np, device: str) -> dict:
     # and the other loops run beside it.
     per_thread = {}  # (what, thread id) -> calls; each key has one writer
 
-    def counted(what, fn, when=lambda *a: True):
+    def counted(what, fn, when=lambda *a, **kw: True):
         def wrapper(*a, **kw):
-            if when(*a):
+            if when(*a, **kw):
                 key = (what, threading.get_ident())
                 per_thread[key] = per_thread.get(key, 0) + 1
             return fn(*a, **kw)
@@ -1110,18 +1146,23 @@ def run_service(torch, np, device: str) -> dict:
     def mine(what) -> int:
         return per_thread.get((what, threading.get_ident()), 0)
 
-    def everyone(what) -> int:
-        return sum(n for (w, _tid), n in list(per_thread.items()) if w == what)
+    def everyone(what, since=None) -> int:
+        """Every thread's calls of ``what`` (since the snapshot ``since``)."""
+        since = since or {}
+        return sum(n - since.get((w, tid), 0) for (w, tid), n in list(per_thread.items()) if w == what)
 
     # the loops' work in flight: once ``stop`` is set no new pass starts,
     # and the phase returns only after the last one ended, so no loop is
     # still inside torch when the interpreter exits
     busy = threading.Condition()
     in_flight = [0]
+    closing = threading.Event()  # the phase is ending: no loop starts a pass
 
-    def begin() -> bool:
+    def begin(stop_) -> bool:
+        """A replica's loop starts a pass, unless the replica or the phase
+        is stopping."""
         with busy:
-            if stop.is_set():
+            if stop_.is_set() or closing.is_set():
                 return False
             in_flight[0] += 1
             return True
@@ -1149,6 +1190,7 @@ def run_service(torch, np, device: str) -> dict:
     greedy_assign_cuda.LAUNCHES = 0
     def staged(method, stage):
         def wrapper(self, *a, **kw):
+            stages.ran.add(stage)
             t = time.perf_counter()
             try:
                 return method(self, *a, **kw)
@@ -1157,8 +1199,10 @@ def run_service(torch, np, device: str) -> dict:
 
         return wrapper
 
+    replica_of = {}  # id(enforcer) -> its replica
+
     def timed_cycle(self, enforcer_, cache_):
-        if not begin():
+        if not begin(replica_of[id(enforcer_)].stop):
             return 0
         try:
             return _timed_cycle(self, enforcer_, cache_)
@@ -1168,29 +1212,51 @@ def run_service(torch, np, device: str) -> dict:
     def _timed_cycle(self, enforcer_, cache_):
         # the enforcer holds its registry lock across the pass, so this
         # count holds for the whole cycle
-        policies = len(enforcer.registered_strategies.get(deschedule.STRATEGY_TYPE, {}))
-        before = {what: mine(what) for what in ("violated_nodes", "violated_device", "violated", "patch_node")}
+        policies = len(enforcer_.registered_strategies.get(deschedule.STRATEGY_TYPE, {}))
+        counts = ("violated_nodes", "violated_nodes_cuda", "violated_device", "violated", "patch_node",
+                  "evictions_allowed", "probe")
+        before = {what: mine(what) for what in counts}
         fallbacks = trace.COUNTERS.get("pas_deschedule_host_fallback_total")
         stages.seconds = {"evaluate": 0.0, "list": 0.0, "patch": 0.0}
+        stages.ran = set()
         t0 = time.perf_counter()
+        raised = True
         try:
-            return originals["enforce"](self, enforcer_, cache_)
+            result = originals["enforce"](self, enforcer_, cache_)
+            raised = False
+            return result
         finally:
             t1 = time.perf_counter()
             delta = {what: mine(what) - n for what, n in before.items()}
+            # which branch of enforce ran: the label pass (leader, evictions
+            # allowed), the suspended cycle (the degraded controller said
+            # no), or the follower's (no controller consulted)
+            if "list" in stages.ran:
+                branch = "labels"
+            elif delta["evictions_allowed"]:
+                branch = "suspended"
+            else:
+                branch = "follower"
             cycles.append(
                 {
                     "start": t0,
                     "end": t1,
+                    "replica": replica_of[id(enforcer_)].name,
+                    "branch": branch,
+                    "raised": raised,
                     "policies": policies,
                     "evaluated": delta["violated_device"],
                     "calls": delta["violated_nodes"],
+                    "cuda_calls": delta["violated_nodes_cuda"],
                     "host_calls": delta["violated"],
                     "patches": delta["patch_node"],
-                    # the service-wide counter: its only writer is this
-                    # thread's deschedule evaluation
+                    # the suspended cycle's list_nodes probes that reached
+                    # the API server (an open circuit refuses them first)
+                    "probes": delta["probe"],
+                    # the service-wide counter: it counts any thread's
+                    # deschedule fallback, and must stay 0
                     "fallbacks": trace.COUNTERS.get("pas_deschedule_host_fallback_total") - fallbacks,
-                    "device": mirror.device.type,
+                    "device": enforcer_.mirror.device.type,
                     **stages.seconds,
                 }
             )
@@ -1203,33 +1269,130 @@ def run_service(torch, np, device: str) -> dict:
     deschedule.Strategy.violated = counted("violated", originals["violated"])
     deschedule.Strategy.violated_device = counted("violated_device", originals["violated_device"])
     for module, fn in callers.items():
-        module.violated_nodes = counted("violated_nodes", fn)
-    batch_scheduler.greedy_assign = counted("greedy_assign_cuda", greedy_assign, lambda score, *a: score.is_cuda)
-    kube.patch_node = counted("patch_node", kube.patch_node)
-
-    # the main's wiring: the fault-tolerant proxy from the default flags,
-    # the metrics client over it, assemble, the GC posture, the server
-    args = tas.build_arg_parser().parse_args([])
-    api = common.wrap_kube_client(kube, *common.build_fault_tolerance(args))
-    t_assemble = time.perf_counter()
-    cache, mirror, ext, controller, enforcer, stop = tas.assemble(
-        api,
-        CustomMetricsClient(api),
-        period,
-        enable_batch_planner=True,
-        node_cache_capable=True,
-        device=device,
+        cuda_counted = counted("violated_nodes_cuda", fn, lambda values, *a, **kw: values.is_cuda)
+        module.violated_nodes = counted("violated_nodes", cuda_counted)
+    batch_scheduler.greedy_assign = counted(
+        "greedy_assign_cuda", greedy_assign, lambda score, *a, **kw: score.is_cuda
     )
-    planner = ext.planner
-    check(mirror.device.type == device and planner.device.type == device, f"service: not on {device}")
-    server = tas.build_server(ext)
-    server.start_server(port="0", unsafe=True, host="127.0.0.1", block=False)
-    check(server.wait_ready(), "service: the server did not start")
+    kube.patch_node = counted("patch_node", kube.patch_node)
+    # a suspended cycle's probe is the one list_nodes call without a selector
+    kube.list_nodes = counted("probe", kube.list_nodes, lambda *a, **kw: not a and not kw)
+    evictions_allowed = DegradedModeController.evictions_allowed
+    DegradedModeController.evictions_allowed = counted("evictions_allowed", evictions_allowed)
 
-    def send(verb, body):
+    def instrument(r):
+        """Time replica ``r``'s enforcement periods, replans and refresh
+        passes, each record naming the replica."""
+        enforce_strategy = r.enforcer.enforce_strategy
+
+        def timed_period(strategy_type, cache_):
+            if strategy_type != deschedule.STRATEGY_TYPE:
+                return enforce_strategy(strategy_type, cache_)
+            t0 = time.perf_counter()
+            enforce_strategy(strategy_type, cache_)
+            periods.append({"start": t0, "end": time.perf_counter(), "replica": r.name})
+
+        r.enforcer.enforce_strategy = timed_period
+
+        solve_inputs, replan = r.planner.solve_inputs, r.planner.replan
+        last_inputs = {}
+
+        def recorded_inputs():
+            inputs = solve_inputs()
+            if inputs is not None:
+                last_inputs["capacity"] = inputs.state.capacity.cpu().numpy()
+                last_inputs["node_index"] = inputs.view.node_index
+            return inputs
+
+        def timed_replan():
+            if not begin(r.stop):
+                return 0
+            try:
+                return _timed_replan()
+            finally:
+                end()
+
+        def _timed_replan():
+            launches, calls = mine("greedy_assign_cuda"), mine("violated_nodes")
+            last_inputs.clear()
+            t0 = time.perf_counter()
+            planned = replan()
+            t1 = time.perf_counter()
+            replans.append(
+                {
+                    "start": t0,
+                    "end": t1,
+                    "replica": r.name,
+                    "planned": planned,
+                    "solved": "capacity" in last_inputs,
+                    "launches": mine("greedy_assign_cuda") - launches,
+                    "calls": mine("violated_nodes") - calls,
+                    **last_inputs,
+                }
+            )
+            return planned
+
+        r.planner.solve_inputs, r.planner.replan = recorded_inputs, timed_replan
+
+        update_all_metrics = r.cache.update_all_metrics
+
+        def timed_refresh(client):
+            if not begin(r.stop):
+                return
+            try:
+                t0 = time.perf_counter()
+                update_all_metrics(client)
+                refreshes.append({"start": t0, "end": time.perf_counter(), "replica": r.name})
+            finally:
+                end()
+
+        r.cache.update_all_metrics = timed_refresh
+
+    replicas = []
+
+    def replica(identity):
+        """One replica as the main wires it (``replica_flags``): the
+        fault-tolerant proxy and its breakers over a FaultyClient on the
+        shared fault plan, the metrics client over it, the lease elector,
+        ``assemble``, the elector started after it, and its server."""
+        args = tas.build_arg_parser().parse_args(replica_flags(identity))
+        policy, breakers = common.build_fault_tolerance(args)
+        api = common.wrap_kube_client(FaultyClient(kube, plan), policy, breakers)
+        elector = common.build_lease_elector(args, api)
+        t0 = time.perf_counter()
+        parts = tas.assemble(
+            api,
+            CustomMetricsClient(api),
+            period,
+            enable_batch_planner=True,
+            node_cache_capable=True,
+            breakers=breakers,
+            degraded_mode=args.degradedMode,
+            leadership=elector,
+            device=device,
+        )
+        r = SimpleNamespace(name=identity, t_assemble=t0, breakers=breakers, elector=elector)
+        r.cache, r.mirror, r.ext, r.controller, r.enforcer, r.stop = parts
+        r.planner = r.ext.planner
+        check(r.mirror.device.type == device and r.planner.device.type == device, f"service: not on {device}")
+        replica_of[id(r.enforcer)] = r
+        instrument(r)
+        replicas.append(r)
+        elector.start(r.stop)
+        r.server = tas.build_server(r.ext)
+        r.server.start_server(port="0", unsafe=True, host="127.0.0.1", block=False)
+        check(r.server.wait_ready(), f"service: {identity}'s server did not start")
+        return r
+
+    a = replica("replica-a")
+    t_assemble = a.t_assemble
+    cache, mirror, ext, controller, enforcer, stop = a.cache, a.mirror, a.ext, a.controller, a.enforcer, a.stop
+    planner, server = a.planner, a.server
+
+    def send(verb, body, to=None):
         # a connection a request: the server closes one idle past its
         # 5 s read-header timeout, and this phase idles for periods
-        conn = http.client.HTTPConnection("127.0.0.1", server.port, timeout=120)
+        conn = http.client.HTTPConnection("127.0.0.1", (to or a).server.port, timeout=120)
         try:
             conn.request("POST", f"/scheduler/{verb}", body=body, headers={"Content-Type": "application/json"})
             resp = conn.getresponse()
@@ -1237,77 +1400,15 @@ def run_service(torch, np, device: str) -> dict:
         finally:
             conn.close()
 
-    enforce_strategy = enforcer.enforce_strategy
-
-    def timed_period(strategy_type, cache_):
-        if strategy_type != deschedule.STRATEGY_TYPE:
-            return enforce_strategy(strategy_type, cache_)
-        t0 = time.perf_counter()
-        enforce_strategy(strategy_type, cache_)
-        periods.append({"start": t0, "end": time.perf_counter()})
-
-    enforcer.enforce_strategy = timed_period
-
-    solve_inputs, replan = planner.solve_inputs, planner.replan
-    last_inputs = {}
-
-    def recorded_inputs():
-        inputs = solve_inputs()
-        if inputs is not None:
-            last_inputs["capacity"] = inputs.state.capacity.cpu().numpy()
-            last_inputs["node_index"] = inputs.view.node_index
-        return inputs
-
-    def timed_replan():
-        if not begin():
-            return 0
-        try:
-            return _timed_replan()
-        finally:
-            end()
-
-    def _timed_replan():
-        launches, calls = mine("greedy_assign_cuda"), mine("violated_nodes")
-        last_inputs.clear()
-        t0 = time.perf_counter()
-        planned = replan()
-        t1 = time.perf_counter()
-        replans.append(
-            {
-                "start": t0,
-                "end": t1,
-                "planned": planned,
-                "solved": "capacity" in last_inputs,
-                "launches": mine("greedy_assign_cuda") - launches,
-                "calls": mine("violated_nodes") - calls,
-                **last_inputs,
-            }
-        )
-        return planned
-
-    planner.solve_inputs, planner.replan = recorded_inputs, timed_replan
-
-    update_all_metrics = cache.update_all_metrics
-
-    def timed_refresh(client):
-        if not begin():
-            return
-        try:
-            t0 = time.perf_counter()
-            update_all_metrics(client)
-            refreshes.append({"start": t0, "end": time.perf_counter()})
-        finally:
-            end()
-
-    cache.update_all_metrics = timed_refresh
-
-    def after(t0):
-        """Wait until a refresh pass started after ``t0`` ended, then an
-        enforcement cycle and a replan that started after that pass."""
-        wait_for(lambda: any(r["start"] > t0 for r in refreshes), 3 * period, "a refresh pass")
-        t1 = next(r["end"] for r in refreshes if r["start"] > t0)
+    def after(t0, name="replica-a"):
+        """Wait until a refresh pass of replica ``name`` started after
+        ``t0`` ended, then an enforcement period and a replan of it that
+        started after that pass."""
+        mine_ = lambda records: [x for x in records if x["replica"] == name]  # noqa: E731
+        wait_for(lambda: any(r["start"] > t0 for r in mine_(refreshes)), 3 * period, "a refresh pass")
+        t1 = next(r["end"] for r in mine_(refreshes) if r["start"] > t0)
         wait_for(
-            lambda: any(p["start"] > t1 for p in periods) and any(r["start"] > t1 for r in replans),
+            lambda: any(p["start"] > t1 for p in mine_(periods)) and any(r["start"] > t1 for r in mine_(replans)),
             3 * period,
             "an enforcement period and a replan",
         )
@@ -1331,11 +1432,11 @@ def run_service(torch, np, device: str) -> dict:
     # says how long it overlapped them all the same
     checks = []
 
-    def between_periods():
-        """Return just after an enforcement period ends (the one in flight,
-        or else the next)."""
-        seen = len(periods)
-        wait_for(lambda: len(periods) > seen, 2 * period, "an enforcement period to end")
+    def between_periods(name="replica-a"):
+        """Return just after an enforcement period of replica ``name`` ends
+        (the one in flight, or else the next)."""
+        seen = sum(p["replica"] == name for p in periods)
+        wait_for(lambda: sum(p["replica"] == name for p in periods) > seen, 2 * period, "an enforcement period to end")
 
     @contextlib.contextmanager
     def checking():
@@ -1420,9 +1521,9 @@ def run_service(torch, np, device: str) -> dict:
         def labels_of():
             return {node.name: node.get_labels() for node in kube.list_nodes()}
 
-        def labels_match(name, rules_, labels):
+        def labels_match(name, rules_, labels, cache_=cache):
             host = set(
-                deschedule.Strategy(name, [TASPolicyRule.from_obj(r) for r in rules_]).violated(cache)
+                deschedule.Strategy(name, [TASPolicyRule.from_obj(r) for r in rules_]).violated(cache_)
             )
             violating = {n for n, lab in labels.items() if lab.get(name) == "violating"}
             stale = {n for n, lab in labels.items() if name in lab and lab[name] not in ("violating", "null")}
@@ -1593,28 +1694,56 @@ def run_service(torch, np, device: str) -> dict:
             and trace.COUNTERS.get("pas_filter_host_fallback_total") == 0,
             "service: a verb fell back to the host",
         )
+        check(a.elector.is_leader(), "service: replica A does not lead")
+
+        # the phases' boundary, taken while no loop pass is in flight (new
+        # passes wait for it): the service phase's counts are read, and the
+        # faults phase's start from 0
+        with busy:
+            check(busy.wait_for(lambda: in_flight[0] == 0, timeout=6 * period), "service: the loops did not pause")
+            out["launches"] = greedy_assign_cuda.LAUNCHES
+            greedy_assign_cuda.LAUNCHES = 0
+            calls = rule_ops.violated_nodes.CALLS
+            at_boundary = dict(per_thread)
+            split = {"cycles": len(cycles), "periods": len(periods), "replans": len(replans),
+                     "refreshes": len(refreshes)}
+            t_boundary = time.perf_counter()
+        check(
+            calls - calls_at_start == everyone("violated_nodes") and out["launches"] == everyone("greedy_assign_cuda"),
+            "service: a violated_nodes call or greedy_assign launch was not counted for its thread",
+        )
+        if faults:
+            ctx = SimpleNamespace(
+                torch=torch, np=np, kube=kube, plan=plan, period=period, device=device, a=a, replica=replica,
+                cycles=cycles, periods=periods, replans=replans, refreshes=refreshes, send=send,
+                labels_of=labels_of, labels_match=labels_match, between_periods=between_periods,
+                policies={name: s["deschedule"] for name, s in remaining.items()}, pods=by_policy,
+                nodes=nodes,
+            )
+            out["faults"] = run_faults(ctx)
+            check(
+                trace.COUNTERS.get("pas_prioritize_host_fallback_total") == 0
+                and trace.COUNTERS.get("pas_filter_host_fallback_total") == 0,
+                "faults: a verb fell back to the host",
+            )
     finally:
         churn_stop.set()
         with busy:
-            stop.set()
+            closing.set()
             busy.wait_for(lambda: in_flight[0] == 0, timeout=6 * period)
-        server.shutdown()
+        for r in replicas:
+            r.stop.set()
+            r.server.shutdown()
         gc.callbacks.remove(on_gc)
         for name, method in originals.items():
             setattr(deschedule.Strategy, name, method)
         for module, fn in callers.items():
             module.violated_nodes = fn
         batch_scheduler.greedy_assign = greedy_assign
-        del kube.patch_node
-    out["launches"] = greedy_assign_cuda.LAUNCHES
+        DegradedModeController.evictions_allowed = evictions_allowed
+        del kube.patch_node, kube.list_nodes
 
-    # every call of the phase went through the per-thread counts
-    check(
-        rule_ops.violated_nodes.CALLS - calls_at_start == everyone("violated_nodes")
-        and out["launches"] == everyone("greedy_assign_cuda"),
-        "service: a violated_nodes call or greedy_assign launch was not counted for its thread",
-    )
-    # the whole phase's cycles and replans, checked one by one
+    # the whole run's cycles and replans, checked one by one
     check(cycles and periods and replans and refreshes, "service: no enforcement cycle, replan or refresh ran")
     for c in cycles:
         check(c["fallbacks"] == 0 and c["host_calls"] == 0, "service: the enforcer took the host path")
@@ -1624,26 +1753,47 @@ def run_service(torch, np, device: str) -> dict:
             f"service: {c['calls']} violated_nodes calls in a cycle that evaluated {c['evaluated']} of "
             f"{c['policies']} policies",
         )
-    seen = {c["policies"] for c in cycles}
+        if device == "cuda":
+            check(c["cuda_calls"] == c["calls"], "service: a cycle evaluated a view that is not on the card")
+    seen = {c["policies"] for c in cycles[: split["cycles"]]}
     check({len(pols), len(pols) - 1} <= seen, f"service: cycles of {sorted(seen)} policies only")
     for r in replans:
         solves = 1 if r["solved"] else 0
         if device == "cuda":
             check(r["launches"] == solves, f"service: a replan launched greedy_assign {r['launches']} times")
         check(r["calls"] == solves, f"service: {r['calls']} violated_nodes calls in a replan")
+    if faults:
+        # every call of the faults phase went through the per-thread counts
+        f = out["faults"]
+        f["launches"] = greedy_assign_cuda.LAUNCHES
+        check(
+            rule_ops.violated_nodes.CALLS - calls == everyone("violated_nodes", since=at_boundary)
+            and f["launches"] == everyone("greedy_assign_cuda", since=at_boundary),
+            "faults: a violated_nodes call or greedy_assign launch was not counted for its thread",
+        )
+        records = {"cycles": cycles, "periods": periods, "replans": replans, "refreshes": refreshes}
+        for key, n in split.items():
+            f[key] = records[key][n:]
+        f["full_collections"] = [g for g in full_collections if g["start"] >= t_boundary]
+        f["launches_by_replica"] = {
+            name: sum(r["launches"] for r in f["replans"] if r["replica"] == name) for name in ("replica-a", "replica-b")
+        }
     out.update(
-        cycles=cycles,
-        periods=periods,
-        replans=replans,
-        refreshes=refreshes,
-        full_collections=full_collections,
+        cycles=cycles[: split["cycles"]],
+        periods=periods[: split["periods"]],
+        replans=replans[: split["replans"]],
+        refreshes=refreshes[: split["refreshes"]],
+        full_collections=[g for g in full_collections if g["start"] < t_boundary],
         checks=checks,
     )
     return out
 
 
 def service_lines(s: dict, card: str) -> list:
-    cycles = [c for c in s["cycles"] if c["policies"]]
+    # the label cycles: a cycle is suspended while telemetry is not yet
+    # fresh (a new policy's metrics before their first refresh)
+    cycles = [c for c in s["cycles"] if c["policies"] and c["branch"] == "labels"]
+    suspended = sum(c["branch"] == "suspended" for c in s["cycles"])
     total = [(c["end"] - c["start"]) * 1e3 for c in cycles]
     stage = {k: statistics.median(c[k] * 1e3 for c in cycles) for k in ("evaluate", "list", "patch")}
     patches = [c["patches"] for c in cycles]
@@ -1659,7 +1809,8 @@ def service_lines(s: dict, card: str) -> list:
         f"{s['planned_final']} at the end; bindings seen by the pod informer in "
         f"{s['bind_observed_s']:.3f} s; pol-0's labels followed its update in {s['update_follow_s']:.3f} s; "
         f"null labels left after the quiescent cycle {s['nulls']} [{card}]",
-        f"service enforcement: {len(cycles)} deschedule cycles p50 {statistics.median(total):.3f} ms "
+        f"service enforcement: {len(cycles)} deschedule label cycles ({suspended} suspended while a new "
+        f"policy's telemetry was not yet fresh) p50 {statistics.median(total):.3f} ms "
         f"max {max(total):.3f} ms (stage medians: device evaluation {stage['evaluate']:.3f} ms, "
         f"node listing {stage['list']:.3f} ms, patches {stage['patch']:.3f} ms; patches a cycle p50 "
         f"{statistics.median(patches):.0f} max {max(patches)}); {len(period)} enforcement periods (one cycle "
@@ -1689,7 +1840,7 @@ def worst_cycle_line(s: dict, card: str) -> str:
     during = [g for g in s["full_collections"] if g["start"] >= first]
     pauses = [(g["end"] - g["start"]) * 1e3 for g in during]
     return (
-        f"service worst cycle: {(worst['end'] - worst['start']) * 1e3:.3f} ms, "
+        f"service worst cycle ({worst['branch']}): {(worst['end'] - worst['start']) * 1e3:.3f} ms, "
         f"{worst['start'] - first:.3f} s into enforcement (device evaluation {worst['evaluate'] * 1e3:.3f} ms, "
         f"node listing {worst['list'] * 1e3:.3f} ms, patches {worst['patch'] * 1e3:.3f} ms, {worst['patches']} "
         f"patches); beside it a refresh pass for {overlap_s(worst, s['refreshes']) * 1e3:.3f} ms, full "
@@ -1708,6 +1859,353 @@ def check_service_limits(s: dict) -> None:
         worst <= ENFORCE_CYCLE_LIMIT_S,
         f"an enforcement cycle took {worst * 1e3:.3f} ms, over its {ENFORCE_CYCLE_LIMIT_S * 1e3:.0f} ms limit",
     )
+
+
+# -- phase 8: the fault planes, two replicas ----------------------------------------
+
+
+def http_get(port: int, path: str):
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def run_faults(ctx) -> dict:
+    """The service's fault planes on the service phase's world, with
+    replica A still running: replica B joins, assembled by the same
+    ``assemble`` on the card; then a metrics-API outage, its recovery, a
+    kube-API outage and a failover, each injected through the fault plan
+    both replicas' FaultyClients share.  Every check is the one
+    ``PERF.md`` section 4 lists for the phase."""
+    import http.client
+
+    from platform_aware_scheduling_tpu_torch.extender.server import HTTPRequest, Server
+    from platform_aware_scheduling_tpu_torch.kube.lease import parse_lease_time
+    from platform_aware_scheduling_tpu_torch.kube.retry import (
+        FENCED_WRITE_VERBS,
+        GROUP_KUBE,
+        READ_VERBS,
+        STATE_CLOSED,
+        WRITE_VERBS,
+        verb_group,
+    )
+    from platform_aware_scheduling_tpu_torch.ops.state import TensorStateMirror
+    from platform_aware_scheduling_tpu_torch.tas.cache import AutoUpdatingCache
+    from platform_aware_scheduling_tpu_torch.tas.policy.v1alpha1 import TASPolicy
+    from platform_aware_scheduling_tpu_torch.tas.telemetryscheduler import MetricsExtender
+    from platform_aware_scheduling_tpu_torch.utils import trace
+    from platform_aware_scheduling_tpu_torch.utils.gctuning import tune_for_serving
+
+    period, a, plan, kube = ctx.period, ctx.a, ctx.plan, ctx.kube
+    out = {}
+    now = time.perf_counter
+
+    def cycles_of(name=None, branch=None, after=0.0, before=float("inf")):
+        return [
+            c for c in list(ctx.cycles)
+            if (name is None or c["replica"] == name) and (branch is None or c["branch"] == branch)
+            and c["start"] >= after and c["start"] < before
+        ]
+
+    def decision(r, which="prioritize"):
+        return getattr(r.ext.degraded, f"{which}_decision")()[0]
+
+    def conditions(r):
+        _status, body = http_get(r.server.port, "/readyz")
+        return {c["name"]: c for c in json.loads(body)["conditions"]}
+
+    def labels_hold(r, what):
+        """After a label cycle of ``r`` (the leader) that started now or
+        later and the end of its period, every policy's labels equal the
+        host evaluation over ``r``'s cache."""
+        t0 = now()
+        wait_for(lambda: cycles_of(r.name, "labels", after=t0), 3 * period, f"a label cycle of {r.name} {what}")
+        ctx.between_periods(r.name)
+        labels = ctx.labels_of()
+        for name, rules_ in ctx.policies.items():
+            ok, _nulls = ctx.labels_match(name, rules_, labels, r.cache)
+            check(ok, f"faults: {name}'s labels differ from the host evaluation {what}")
+
+    # the requests both replicas answer: 2 pods of each remaining policy
+    mix = [
+        (verb, args_body(pod.name, name, ctx.nodes))
+        for name in sorted(ctx.policies)
+        for pod in ctx.pods[name][:2]
+        for verb in ("filter", "prioritize")
+    ]
+
+    # 1. replica B, and the roles
+    b = ctx.replica("replica-b")
+    informers = {"taspolicy": b.controller.informer, "pods": b.planner.feed.informers[0],
+                 "nodes": b.planner.feed.informers[1]}
+    synced = {}
+
+    def b_synced():
+        for name, informer in informers.items():
+            if name not in synced and informer.has_synced():
+                synced[name] = now() - b.t_assemble
+        return len(synced) == len(informers)
+
+    wait_for(b_synced, 120, "replica B's initial syncs", poll_s=0.005)
+    out["b_sync_s"] = synced
+    out["b_assembled_at"] = b.t_assemble
+    # B's main would apply the GC posture here, after its initial lists
+    tune_for_serving()
+    for r in (a, b):
+        r.ext.degraded.lkg_max_age_s = LKG_MAX_AGE_S
+    wait_for(lambda: b.cache.telemetry_freshness()[0] and len(b.cache.registered_metric_names()) > 0,
+             3 * period, "replica B's first refresh")
+    t_fresh = now()
+    wait_for(
+        lambda: any(r["replica"] == b.name and r["solved"] and r["start"] > t_fresh for r in ctx.replans)
+        and len(cycles_of(b.name, after=t_fresh)) >= 3,
+        3 * period,
+        "replica B's first replan and 3 cycles on fresh telemetry",
+    )
+    out["b_ready_s"] = now() - b.t_assemble
+    check(a.elector.is_leader() and not b.elector.is_leader(), "faults: replica A does not lead, or B does")
+    check(b.elector.status()["lease"]["holder"] == a.name, "faults: B does not see A hold the lease")
+    for r in (a, b):
+        for _attempt in range(5):  # a tick between the two reads moves the tick count
+            got, want = http_get(r.server.port, "/debug/leader"), (200, r.elector.to_json())
+            if got == want:
+                break
+        check(got == want, f"faults: {r.name}'s /debug/leader is not its elector's state")
+    pre = {}
+    for verb, body in mix:
+        got = ctx.send(verb, body, to=a)
+        check(got[0] == 200 and got == ctx.send(verb, body, to=b), f"faults: B's {verb} differs from A's")
+        pre[body, verb] = got
+    follower = cycles_of(b.name, after=t_fresh)
+    check(all(c["branch"] == "follower" and c["patches"] == 0 for c in follower),
+          "faults: the follower wrote labels")
+
+    # 2. the metrics-API outage
+    spans = {}
+    trace.SPAN_OBSERVERS.append(lambda span: spans.__setitem__(span.trace_id, span))
+
+    def send_id(r, verb, body, rid):
+        conn = http.client.HTTPConnection("127.0.0.1", r.server.port, timeout=120)
+        try:
+            conn.request("POST", f"/scheduler/{verb}", body=body,
+                         headers={"Content-Type": "application/json", "X-Request-ID": rid})
+            resp = conn.getresponse()
+            got = resp.status, resp.read()
+        finally:
+            conn.close()
+        wait_for(lambda: rid in spans, 5, f"the span of {rid}", poll_s=0.005)
+        return got, spans[rid]
+
+    try:
+        t_out = now()
+        plan.outage("get_node_custom_metric")
+        out["to_degraded_s"] = wait_for(lambda: not conditions(a)["degraded_mode"]["ok"], 3 * period,
+                                        "/readyz to show degraded_mode", poll_s=0.05)
+        t_degraded = now()
+        lkg = 0
+        for i, (verb, body) in enumerate(mix):
+            if decision(a) != "last_known_good":
+                break
+            got, span = send_id(a, verb, body, f"lkg-{i}")
+            if decision(a) != "last_known_good":
+                break  # the window closed under the request
+            check(got == pre[body, verb], f"faults: a last-known-good {verb} differs from the answer before the outage")
+            if verb == "prioritize":
+                check(span.attrs.get("path") == "device" and span.attrs.get("degraded"),
+                      f"faults: a last-known-good Prioritize took path {span.attrs.get('path')}")
+                lkg += 1
+        check(lkg > 0, "faults: no Prioritize was answered within the last-known-good window")
+        out["lkg_requests"] = lkg
+        wait_for(lambda: decision(a) == "neutral" and decision(b) == "neutral", LKG_MAX_AGE_S + 3 * period,
+                 "Prioritize to turn neutral")
+        out["to_neutral_s"] = now() - t_out
+        check(decision(a, "filter") == "fail_open", "faults: Filter does not fail open past the window")
+        # the CPU-mirror twin in the same state: the policies from the API
+        # server, the replica's own degraded-mode controller
+        twin_cache = AutoUpdatingCache()
+        twin_mirror = TensorStateMirror(device="cpu")
+        twin_mirror.attach(twin_cache)
+        for item in kube.list_taspolicies()["items"]:
+            policy = TASPolicy.from_obj(item)
+            twin_cache.write_policy(policy.namespace, policy.name, policy)
+        twin = MetricsExtender(twin_cache, mirror=twin_mirror, node_cache_capable=True)
+        twin.degraded = a.ext.degraded
+        twin_server = Server(twin)
+        for verb, body in mix:
+            got = ctx.send(verb, body, to=a)
+            want = twin_server.route(HTTPRequest("POST", f"/scheduler/{verb}", {"Content-Type": "application/json"}, body))
+            check(got == (want.status, want.body) == ctx.send(verb, body, to=b),
+                  f"faults: a neutral or fail-open {verb} differs from the CPU twin's")
+            if verb == "prioritize":
+                check({e["Score"] for e in json.loads(got[1])} == {0}, "faults: Prioritize is not neutral")
+            else:
+                check(json.loads(got[1])["FailedNodes"] == {}, "faults: Filter does not fail open")
+        # the verbs' times in this state, over one keep-alive connection
+        conn = http.client.HTTPConnection("127.0.0.1", a.server.port, timeout=120)
+        times = {}
+        try:
+            for verb in ("filter", "prioritize"):
+                bodies = [body for v, body in mix if v == verb]
+                times[verb] = []
+                for i in range(FAULTS_TIMED_REQUESTS):
+                    t0 = now()
+                    conn.request("POST", f"/scheduler/{verb}", body=bodies[i % len(bodies)],
+                                 headers={"Content-Type": "application/json"})
+                    resp = conn.getresponse()
+                    resp.read()
+                    times[verb].append((now() - t0) * 1e3)
+                    check(resp.status == 200, f"faults: a timed {verb} answered {resp.status}")
+        finally:
+            conn.close()
+        check(decision(a) == "neutral" and decision(a, "filter") == "fail_open",
+              "faults: the state changed while the verbs were timed")
+        out["verbs"] = {verb: {"p50_ms": statistics.median(t), "p99_ms": percentile(t, 0.99), "max_ms": max(t)}
+                        for verb, t in times.items()}
+
+        # no warm pass raised on a cache whose refreshes fail
+        warm_ok = lambda: all(r.ext.readiness_conditions()[0][1]() == (True, "fastpath warmed") for r in (a, b))  # noqa: E731
+        check(warm_ok(), "faults: a warm pass failed during the metrics outage")
+
+        # 3. recovery
+        t_clear = now()
+        plan.clear("get_node_custom_metric")
+        for r in (a, b):
+            wait_for(lambda r=r: r.breakers.states().get("metrics") == STATE_CLOSED and conditions(r)["degraded_mode"]["ok"],
+                     CIRCUIT_RESET_S + 3 * period, f"{r.name}'s telemetry to recover")
+            out[f"recovery_s_{r.name}"] = now() - t_clear
+        t_recovered = now()
+        # while the outage lasted, every cycle wrote nothing and the
+        # leader's were suspended (after it, recovery may come at any time)
+        window = cycles_of(after=t_degraded, before=t_clear)
+        check(all(c["patches"] == 0 for c in window), "faults: a cycle wrote labels during the metrics outage")
+        check(all(c["branch"] == "suspended" for c in window if c["replica"] == a.name)
+              and cycles_of(a.name, "suspended", t_degraded, t_clear),
+              "faults: the leader's cycles were not suspended during the metrics outage")
+        out["metrics_suspended_cycles"] = len(cycles_of(a.name, "suspended", t_degraded, t_recovered))
+        labels_hold(a, "after the metrics outage")
+        check(warm_ok(), "faults: a warm pass failed after the recovery")
+
+        # 4. the kube-API outage, from just after a renew of the leader, so
+        # its grant outlasts the outage
+        kube_verbs = sorted(v for v in READ_VERBS | WRITE_VERBS | FENCED_WRITE_VERBS if verb_group(v) == GROUP_KUBE)
+        leader = a if a.elector.is_leader() else b
+        ticks = leader.elector.status()["ticks"]
+        wait_for(lambda: leader.elector.status()["ticks"] > ticks, 2 * LEASE_RENEW_S, "a renew of the leader")
+        t_kube = now()
+        for verb in kube_verbs:
+            plan.outage(verb)
+        wait_for(lambda: leader.breakers.states().get("kube", STATE_CLOSED) != STATE_CLOSED, 3 * period,
+                 "the kube circuit to open")
+        t_open = now()
+        out["kube_open_s"] = t_open - t_kube
+        # held until a suspended cycle of the leader, and cleared before the
+        # circuit's first half-open probe, which would fail and re-arm it
+        while not cycles_of(leader.name, "suspended", t_open) and now() < t_open + CIRCUIT_RESET_S - 0.5:
+            time.sleep(0.02)
+        for verb, body in mix[:2]:
+            check(ctx.send(verb, body, to=leader) == pre[body, verb], f"faults: {verb} differs during the kube outage")
+        t_kube_clear = now()
+        plan.clear()
+        wait_for(lambda: leader.breakers.states().get("kube") == STATE_CLOSED, CIRCUIT_RESET_S + 2 * period,
+                 "the kube circuit to close")
+        t_closed = now()
+        out["kube_held_s"] = t_kube_clear - t_kube
+        out["kube_close_s"] = t_closed - t_kube_clear
+        check(out["kube_close_s"] <= CIRCUIT_RESET_S + period,
+              f"faults: the kube circuit closed {out['kube_close_s']:.3f} s after the outage")
+        # no circuit can close while the outage lasts: no label pass then
+        window = cycles_of(after=t_open, before=t_kube_clear)
+        check(all(c["branch"] != "labels" and c["patches"] == 0 for c in window),
+              "faults: a cycle ran its label pass while the kube circuit was open")
+        out["kube_suspended_cycles"] = len(cycles_of(branch="suspended", after=t_open, before=t_closed))
+        check(out["kube_suspended_cycles"] > 0, "faults: no cycle was suspended while the kube circuit was open")
+        out["kube_probes"] = sum(c["probes"] for c in cycles_of(branch="suspended", after=t_kube_clear, before=t_closed))
+        wait_for(lambda: a.elector.is_leader() or b.elector.is_leader(), LEASE_DURATION_S + 2 * period,
+                 "a leader after the kube outage")
+        leader = a if a.elector.is_leader() else b
+        out["leader_after_kube"] = leader.name
+        wait_for(lambda: any(c["patches"] for c in cycles_of(leader.name, "labels", t_closed)), 3 * period,
+                 "the labels to resume")
+        out["labels_resume_s"] = now() - t_closed
+
+        # 5. failover: the leader crashes, its lease not released
+        old, new = (a, b) if leader is a else (b, a)
+        token = old.elector.fencing_token()
+        lease = kube.get_lease(old.elector.namespace, old.elector.lease_name)["spec"]
+        t_crash = now()
+        t_expiry = t_crash + parse_lease_time(lease["renewTime"]) + lease["leaseDurationSeconds"] - time.time()
+        old.stop.set()
+        old.server.shutdown()
+        bound = LEASE_DURATION_S + LEASE_RENEW_S + period
+        out["failover_s"] = wait_for(lambda: new.elector.is_leader(), bound + period, "the follower to lead")
+        check(out["failover_s"] <= bound, f"faults: failover took {out['failover_s']:.3f} s, over its {bound:.0f} s bound")
+        check(new.elector.fencing_token() == token + 1,
+              f"faults: fencing token {new.elector.fencing_token()} after {token}")
+        out["failover"] = f"{old.name} -> {new.name}, token {token} -> {token + 1}"
+        labels_hold(new, "after the failover")
+        check(not any(c["patches"] for c in ctx.cycles if c["replica"] == old.name and c["end"] > t_expiry),
+              "faults: the old leader wrote labels after its lease ran out")
+        check(not cycles_of(old.name, after=t_crash), "faults: the crashed replica kept enforcing")
+    finally:
+        trace.SPAN_OBSERVERS.pop()
+        plan.clear()
+    out["seconds"] = now() - b.t_assemble
+    return out
+
+
+def faults_lines(s: dict, card: str) -> list:
+    f = s["faults"]
+    ms = lambda cs: [(c["end"] - c["start"]) * 1e3 for c in cs]  # noqa: E731
+    suspended = ms([c for c in f["cycles"] if c["branch"] == "suspended"])
+    follower = ms([c for c in f["cycles"] if c["branch"] == "follower"])
+    sync = ", ".join(f"{k} {v:.3f} s" for k, v in f["b_sync_s"].items())
+    verbs = "; ".join(
+        f"{verb} p50 {t['p50_ms']:.3f} ms p99 {t['p99_ms']:.3f} ms max {t['max_ms']:.3f} ms"
+        for verb, t in f["verbs"].items()
+    )
+    launches = ", ".join(f"{k} {v}" for k, v in f["launches_by_replica"].items())
+    worst = max((c for c in f["cycles"] if c["branch"] == "follower"), key=lambda c: c["end"] - c["start"])
+    return [
+        f"faults replica B: initial syncs {sync}; ready (3 cycles and a replan on fresh telemetry) "
+        f"{f['b_ready_s']:.3f} s after its assemble; one leader (replica-a), /debug/leader = each elector's "
+        f"state, the follower's answers = the leader's, 0 follower patches [{card}]",
+        f"faults metrics outage: /readyz degraded_mode after {f['to_degraded_s']:.3f} s, "
+        f"{f['lkg_requests']} Prioritize last-known-good answers = the pre-outage bytes on the device path, "
+        f"neutral after {f['to_neutral_s']:.3f} s; neutral and fail-open bytes = the CPU twin's; "
+        f"{FAULTS_TIMED_REQUESTS} requests each: {verbs}; {f['metrics_suspended_cycles']} suspended leader cycles, "
+        f"0 patches; recovered in {f['recovery_s_replica-a']:.3f} s (A), {f['recovery_s_replica-b']:.3f} s (B); "
+        f"labels = host evaluation [{card}]",
+        f"faults kube outage: circuit open after {f['kube_open_s']:.3f} s, outage held {f['kube_held_s']:.3f} s, "
+        f"{f['kube_suspended_cycles']} suspended cycles with 0 patches ({f['kube_probes']} probes reached the API "
+        f"after the outage), closed {f['kube_close_s']:.3f} s after it (limit {CIRCUIT_RESET_S + SERVICE_SYNC_PERIOD_S:.0f} s), "
+        f"leader after it {f['leader_after_kube']}, labels resumed in {f['labels_resume_s']:.3f} s [{card}]",
+        f"faults failover {f['failover']}: {f['failover_s']:.3f} s (bound "
+        f"{LEASE_DURATION_S + LEASE_RENEW_S + SERVICE_SYNC_PERIOD_S:.0f} s); labels = host evaluation; no patch by "
+        f"the old leader after its lease ran out [{card}]",
+        f"faults cycles: {len(suspended)} suspended p50 {statistics.median(suspended):.3f} ms max "
+        f"{max(suspended):.3f} ms; {len(follower)} follower p50 {statistics.median(follower):.3f} ms max "
+        f"{max(follower):.3f} ms (the worst {worst['start'] - f['b_assembled_at']:.3f} s after B's assemble, beside "
+        f"the replicas' refresh passes for {overlap_s(worst, f['refreshes']) * 1e3:.3f} ms, full collections for "
+        f"{overlap_s(worst, f['full_collections']) * 1e3:.3f} ms); violated_nodes calls = policies in every cycle, "
+        f"on the card; greedy_assign "
+        f"launches {f['launches']} ({launches}), one a solved replan; phase {f['seconds']:.3f} s [{card}]",
+    ]
+
+
+def check_faults_limits(s: dict) -> None:
+    """PERF.md section 2: the verbs' p99 in the degraded state and every
+    cycle of the phase within their limits."""
+    f = s["faults"]
+    for verb, t in f["verbs"].items():
+        check(t["p99_ms"] <= VERB_P99_LIMIT_MS, f"faults: {verb} p99 {t['p99_ms']:.3f} ms over {VERB_P99_LIMIT_MS} ms")
+    worst = max(c["end"] - c["start"] for c in f["cycles"])
+    check(worst <= ENFORCE_CYCLE_LIMIT_S, f"faults: a cycle took {worst * 1e3:.3f} ms, over its limit")
 
 
 def main() -> int:
@@ -1804,6 +2302,17 @@ def main() -> int:
     check_service_limits(service)
     check(service["launches"] > 0, "service: the live planner never launched greedy_assign")
     print(f"limits met: every enforcement cycle <= {ENFORCE_CYCLE_LIMIT_S * 1e3:.0f} ms")
+    for line in faults_lines(service, card):
+        print(line)
+    check_faults_limits(service)
+    check(
+        all(service["faults"]["launches_by_replica"].values()),
+        "faults: a replica's live planner never launched greedy_assign",
+    )
+    print(
+        f"limits met: faults verb p99 <= {VERB_P99_LIMIT_MS} ms, every cycle <= "
+        f"{ENFORCE_CYCLE_LIMIT_S * 1e3:.0f} ms, failover <= {LEASE_DURATION_S + LEASE_RENEW_S + SERVICE_SYNC_PERIOD_S:.0f} s"
+    )
 
     kernels = [
         {
@@ -1825,6 +2334,7 @@ def main() -> int:
             "rescans": main_times["rescans"],
             "verbs_launches": verbs["launches"],
             "service_launches": service["launches"],
+            "faults_launches": service["faults"]["launches"],
         }
     ]
     print(json.dumps({"kernels": kernels}))

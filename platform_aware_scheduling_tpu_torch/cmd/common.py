@@ -1,21 +1,26 @@
 """Flags and start-up helpers of the service main.
 
 The port's copy of the parts of ``platform_aware_scheduling_tpu/cmd/
-common.py`` that ``cmd/tas.py`` uses: the robustness flags (retry, backoff
-and circuit breaking), the decision-log and event-journal flags, and the
-fault-tolerant proxy put in front of the kube client.  ``--degradedMode``
-comes with the degraded-mode controller, which is not ported.
+common.py`` that ``cmd/tas.py`` uses: the robustness flags (retry, backoff,
+circuit breaking and ``--degradedMode``), the leader-election flags, the
+decision-log and event-journal flags, the fault-tolerant proxy put in
+front of the kube client, and the lease elector built over it.  The JAX
+HA flags' gang journal (``--gangJournal*``) comes with the gang plane.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
+import socket
+from typing import Optional
 
 from platform_aware_scheduling_tpu_torch.kube.retry import (
     CircuitBreakerRegistry,
     FaultTolerantClient,
     RetryPolicy,
 )
+from platform_aware_scheduling_tpu_torch.kube.lease import LeaseElector
 from platform_aware_scheduling_tpu_torch.utils import decisions, events
 from platform_aware_scheduling_tpu_torch.utils.duration import parse_duration
 
@@ -39,6 +44,43 @@ def add_robustness_flags(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--circuitResetTimeout", default="30s",
                         help="how long an open circuit waits before the "
                         "half-open probe (Go duration)")
+    parser.add_argument("--degradedMode", default="last-known-good",
+                        choices=["fail-open", "fail-closed", "last-known-good"],
+                        help="dontschedule Filter policy while telemetry "
+                        "is degraded: fail-open passes every candidate, "
+                        "fail-closed passes none, last-known-good keeps "
+                        "serving retained values within a bounded age "
+                        "then fails open.  Evictions are ALWAYS "
+                        "suspended while degraded (not configurable)")
+
+
+def add_ha_flags(parser: argparse.ArgumentParser) -> None:
+    """Leader election over a coordination.k8s.io Lease."""
+    parser.add_argument("--leaderElect", action="store_true",
+                        help="run N replicas behind one Service with "
+                        "exactly one executing the actuation loops "
+                        "(deschedule labels): leadership rides a "
+                        "coordination.k8s.io Lease with a monotonic "
+                        "fencing token; followers keep serving "
+                        "Filter/Prioritize at full quality.  Off (the "
+                        "default) changes nothing on the wire")
+    parser.add_argument("--leaseName", default="pas-tas-extender",
+                        help="name of the leadership Lease object")
+    parser.add_argument("--leaseNamespace", default="default",
+                        help="namespace of the leadership Lease")
+    parser.add_argument("--leaseDuration", default="15s",
+                        help="how long a leadership grant survives "
+                        "without renew before standbys may take over "
+                        "(Go duration); also the deposed leader's "
+                        "self-demotion deadline")
+    parser.add_argument("--leaseRenewPeriod", default="",
+                        help="interval between renew/acquire attempts "
+                        "(Go duration); empty = a third of "
+                        "--leaseDuration, jittered deterministically "
+                        "per replica")
+    parser.add_argument("--replicaId", default="",
+                        help="this replica's lease holder identity; "
+                        "empty derives hostname-pid")
 
 
 def add_decision_flags(parser: argparse.ArgumentParser) -> None:
@@ -97,3 +139,26 @@ def wrap_kube_client(kube_client, policy, breakers):
     """The fault-tolerant proxy the main puts in front of every API
     consumer (kube/retry.py)."""
     return FaultTolerantClient(kube_client, policy=policy, breakers=breakers)
+
+
+def replica_identity(args) -> str:
+    """The lease holder identity: ``--replicaId`` or hostname-pid."""
+    if args.replicaId:
+        return args.replicaId
+    return f"{socket.gethostname()}-{os.getpid()}"
+
+
+def build_lease_elector(args, kube_client) -> Optional[LeaseElector]:
+    """The LeaseElector of ``--leaderElect`` (None when off).  The client
+    is the fault-tolerant proxy, where the lease verbs retry as
+    idempotent-by-fencing within the lease duration."""
+    if not args.leaderElect:
+        return None
+    return LeaseElector(
+        kube_client,
+        identity=replica_identity(args),
+        lease_name=args.leaseName,
+        namespace=args.leaseNamespace,
+        lease_duration_s=parse_duration(args.leaseDuration),
+        renew_period_s=parse_duration(args.leaseRenewPeriod) if args.leaseRenewPeriod else None,
+    )

@@ -3,21 +3,26 @@
 The port's copy of ``platform_aware_scheduling_tpu/cmd/tas.py``.  The
 reference's flag surface (``--kubeConfig --port --cert --key --cacert
 --unsafe --syncPeriod`` plus klog's ``--v``), the batch planner's flags,
-and the robustness, decision-log and event-journal flags, each with the
-JAX main's name, default and meaning.  A tensor mirror on the GPU sits
-behind the cache, so the verbs' scoring, the planner's solve and the
-deschedule evaluation run on the card.
+and the robustness (``--degradedMode`` among them), leader-election,
+decision-log and event-journal flags, each with the JAX main's name,
+default and meaning.  A tensor mirror on the GPU sits behind the cache,
+so the verbs' scoring, the planner's solve and the deschedule evaluation
+run on the card.
 
     python -m platform_aware_scheduling_tpu_torch.cmd.tas --unsafe \\
-        --batchPlanner --nodeCacheCapable
+        --batchPlanner --nodeCacheCapable --leaderElect
 
-The flags of the JAX main's other planes (profiler, degraded mode,
-rebalancer, gang, admission, shard, forecast, HA, SLO, control, flight
+As the JAX main does, ``main`` always builds the degraded-mode controller
+over the circuit breakers of its fault-tolerant client: while telemetry is
+stale or a circuit is open, Filter and Prioritize degrade and the
+deschedule label pass is suspended.  With ``--leaderElect`` only the
+lease's holder writes labels.
+
+The flags of the JAX main's other planes (profiler, rebalancer, gang and
+the gang journal, admission, shard, forecast, SLO, control, flight
 recorder, solve observatory, ``--batchSolver=sinkhorn``,
 ``--serving=async``) are absent until their planes are ported, so
-argparse refuses them.  Without ``--degradedMode`` there is no
-degraded-mode controller: the main behaves as the JAX ``assemble`` with
-``breakers=None`` behind a fault-tolerant client.
+argparse refuses them.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from platform_aware_scheduling_tpu_torch.kube.client import get_kube_client
 from platform_aware_scheduling_tpu_torch.ops.state import TensorStateMirror
 from platform_aware_scheduling_tpu_torch.tas.cache import AutoUpdatingCache
 from platform_aware_scheduling_tpu_torch.tas.controller import TelemetryPolicyController
+from platform_aware_scheduling_tpu_torch.tas.degraded import MODE_LAST_KNOWN_GOOD, DegradedModeController
 from platform_aware_scheduling_tpu_torch.tas.metrics import CustomMetricsClient
 from platform_aware_scheduling_tpu_torch.tas.planner import BatchPlanner
 from platform_aware_scheduling_tpu_torch.tas.strategies import (
@@ -91,6 +97,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
     common.add_robustness_flags(parser)
     common.add_decision_flags(parser)
     common.add_event_flags(parser)
+    common.add_ha_flags(parser)
     return parser
 
 
@@ -102,13 +109,23 @@ def assemble(
     enable_batch_planner: bool = False,
     batch_solver: str = "greedy",
     node_cache_capable: bool = False,
+    breakers=None,
+    degraded_mode: Optional[str] = None,
+    leadership=None,
     device: DeviceLike = None,
 ):
     """Wire cache -> mirror (on ``device``) -> planner -> extender ->
     enforcer -> controller, then start the refresh loop, the CRD informer,
     the enforcement loop and, with the planner, its informers and replan
     loop.  Returns ``(cache, mirror, extender, controller, enforcer,
-    stop)``; setting ``stop`` ends every background loop."""
+    stop)``; setting ``stop`` ends every background loop.
+
+    ``breakers`` / ``degraded_mode``: when either is given, a
+    DegradedModeController over the cache's freshness and the circuits'
+    states is attached to the extender and the enforcer.  ``leadership``:
+    the ``--leaderElect`` LeaseElector, attached to the enforcer (the
+    label pass runs on the leader only) and the extender (``/readyz``,
+    ``/debug/leader``); the caller starts it."""
     cache = AutoUpdatingCache()
     mirror = TensorStateMirror(device=device)
     mirror.attach(cache)
@@ -118,13 +135,19 @@ def assemble(
     extender = MetricsExtender(
         cache, mirror=mirror, planner=planner, node_cache_capable=node_cache_capable
     )
+    extender.leadership = leadership
 
     # the registration order is the order the violation map lists policies
     # in, and so the order of each node's patch operations
     enforcer = core.MetricEnforcer(kube_client, mirror=mirror)
+    enforcer.leadership = leadership
     enforcer.register_strategy_type(deschedule.Strategy())
     enforcer.register_strategy_type(scheduleonmetric.Strategy())
     enforcer.register_strategy_type(dontschedule.Strategy())
+    if breakers is not None or degraded_mode is not None:
+        degraded = DegradedModeController(cache, breakers=breakers, mode=degraded_mode or MODE_LAST_KNOWN_GOOD)
+        extender.degraded = degraded
+        enforcer.degraded = degraded
 
     controller = TelemetryPolicyController(kube_client, cache, enforcer)
 
@@ -192,6 +215,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     retry_policy, breakers = common.build_fault_tolerance(args)
     kube_client = common.wrap_kube_client(get_kube_client(args.kubeConfig), retry_policy, breakers)
     metrics_client = CustomMetricsClient(kube_client)
+    # leader election rides the fault-tolerant client too
+    leadership = common.build_lease_elector(args, kube_client)
     _cache, _mirror, extender, controller, _enforcer, stop = assemble(
         kube_client,
         metrics_client,
@@ -199,8 +224,15 @@ def main(argv: Optional[List[str]] = None) -> int:
         enable_batch_planner=args.batchPlanner,
         batch_solver=args.batchSolver,
         node_cache_capable=args.nodeCacheCapable,
+        breakers=breakers,
+        degraded_mode=args.degradedMode,
+        leadership=leadership,
         device=device,
     )
+    if leadership is not None:
+        # after assembly, so this replica's caches are warm before it can
+        # win the lease and start writing labels
+        leadership.start(stop)
 
     server = build_server(extender)
     # /readyz also waits on the TASPolicy informer's initial list; the

@@ -11,12 +11,14 @@ with the routes and middleware of the reference extender:
     client certificates required and verified against a CA pool, 5 s
     read-header and 10 s write timeouts;
   * the observability surface: ``/healthz``, ``/readyz``, ``/metrics``,
-    ``/debug/traces``, ``/debug/decisions``, ``/debug/explain`` and the
+    ``/debug/traces``, ``/debug/decisions``, ``/debug/explain``,
+    ``/debug/leader`` (the elector's state, when one is wired) and the
     ``/debug`` index.
 
 The JAX server's other ``/debug/*`` endpoints belong to planes the port
 does not have yet; each answers here exactly as the JAX server does with
-its plane off (:data:`PLANE_OFF`).
+its plane off (:data:`PLANE_OFF`), as ``/debug/leader`` does with no
+elector wired.
 """
 
 from __future__ import annotations
@@ -81,11 +83,13 @@ DEBUG_ENDPOINTS = [
     {"path": "/metrics", "description": "Prometheus exposition: verb histograms, path attribution, pas_* families"},
     {"path": "/debug/traces", "description": "recent + slowest request traces; filters: ?verb=<verb>&min_ms=<float>"},
     {"path": "/debug/decisions", "description": "scheduling decision provenance records; filters: ?pod=<name>&verb=<verb>&limit=<n> (404 when --decisionLog=off)"},
+    {"path": "/debug/leader", "description": "leader-election state: role, lease holder, fencing token (404 when --leaderElect is off)"},
     {"path": "/debug/explain", "description": "causal event spine: the ordered event chain + narrative for one entity; filters: ?pod=<ns/name>&gang=<id>&request_id=<id>&node=<name> (404 when --events=off)"},
 ]
 
 #: path -> (method, 404 body) of the JAX server's debug endpoints whose
-#: planes are not ported: the bytes it answers with each plane off
+#: planes are not ported, or not wired: the bytes it answers with each
+#: plane off
 PLANE_OFF: Dict[str, tuple] = {
     "/debug/rebalance": ("GET", b'{"error": "rebalancer not configured"}\n'),
     "/debug/gangs": ("GET", b'{"error": "gang scheduling not configured"}\n'),
@@ -396,6 +400,12 @@ class Server:
                 return HTTPResponse(status=405)
             status, body = self.probe.readyz_response()
             return HTTPResponse.json(body, status=status)
+        if bare_path == "/debug/leader" and request.method == "GET":
+            # leader-election state (kube/lease.py); with no elector wired
+            # (--leaderElect off) the plane-off 404 below answers
+            leadership = getattr(self.scheduler, "leadership", None)
+            if leadership is not None:
+                return HTTPResponse.json(leadership.to_json())
         if bare_path in PLANE_OFF:
             method, body = PLANE_OFF[bare_path]
             if request.method != method:

@@ -1,0 +1,380 @@
+"""Leader election over a ``coordination.k8s.io`` Lease, with fencing.
+
+The port's copy of ``platform_aware_scheduling_tpu/kube/lease.py``.  The
+deschedule label pass must run on exactly one of N replicas while every
+replica keeps serving Filter and Prioritize; :class:`LeaseElector` is the
+arbiter:
+
+  * **One lease, optimistic concurrency.**  Acquire and takeover are
+    resourceVersion-carrying updates, so of N concurrent acquirers the API
+    server commits one; the rest observe 409 and follow.
+  * **A monotonic fencing token.**  ``spec.leaseTransitions`` increments
+    on every change of holder.  :meth:`check_fencing` re-reads the lease
+    and refuses when the holder or the token changed.
+  * **Local expiry.**  A leader that cannot renew demotes itself once its
+    own grant would have lapsed, with no API contact, so the singleton
+    loops stop before a standby may take over.
+  * **Deterministic jitter.**  The background loop spaces its rounds by
+    ``renew_period_s`` times the retry stack's seeded jitter (seeded from
+    the replica identity), so replicas do not stampede the lease.
+
+:meth:`tick` is one observe-decide-act round; :meth:`start` runs it on a
+daemon thread.  Lease times are RFC3339 MicroTime strings (the duration an
+integer), as the ``coordination.k8s.io/v1`` API requires, read back as
+epoch seconds against the injectable ``clock`` (``time.time`` by default,
+so replicas compare them).  The fencing token, not any clock, is the
+correctness anchor.
+"""
+
+from __future__ import annotations
+
+import json
+import threading
+import time
+from datetime import datetime, timezone
+from typing import Callable, Dict, Optional
+
+from platform_aware_scheduling_tpu_torch.kube.client import ConflictError, NotFoundError
+from platform_aware_scheduling_tpu_torch.kube.retry import _deterministic_jitter, stable_hash
+from platform_aware_scheduling_tpu_torch.utils import klog, trace
+from platform_aware_scheduling_tpu_torch.utils.tracing import CounterSet
+
+DEFAULT_LEASE_DURATION_S = 15.0
+DEFAULT_LEASE_NAME = "pas-tas-extender"
+DEFAULT_LEASE_NAMESPACE = "default"
+
+ROLE_LEADER = "leader"
+ROLE_FOLLOWER = "follower"
+
+
+def format_micro_time(ts: float) -> str:
+    """Epoch seconds -> the RFC3339 MicroTime string the API server
+    requires for acquireTime and renewTime."""
+    return datetime.fromtimestamp(float(ts), tz=timezone.utc).strftime("%Y-%m-%dT%H:%M:%S.%f") + "Z"
+
+
+def parse_lease_time(value) -> float:
+    """A lease time field -> epoch seconds.  Accepts RFC3339, with or
+    without fractional seconds, and plain numbers; anything unparseable
+    reads as 0.0 (long expired), which leads to a takeover attempt that
+    the optimistic update still arbitrates."""
+    if value is None:
+        return 0.0
+    if isinstance(value, (int, float)):
+        return float(value)
+    text = str(value).strip().replace("Z", "+00:00")
+    for fmt in ("%Y-%m-%dT%H:%M:%S.%f%z", "%Y-%m-%dT%H:%M:%S%z"):
+        try:
+            return datetime.strptime(text, fmt).timestamp()
+        except ValueError:
+            continue
+    return 0.0
+
+
+class LeaseElector:
+    """One replica's view of the shared leadership lease."""
+
+    def __init__(
+        self,
+        kube_client,
+        identity: str,
+        lease_name: str = DEFAULT_LEASE_NAME,
+        namespace: str = DEFAULT_LEASE_NAMESPACE,
+        lease_duration_s: float = DEFAULT_LEASE_DURATION_S,
+        renew_period_s: Optional[float] = None,
+        clock: Callable[[], float] = time.time,
+        sleep: Callable[[float], None] = time.sleep,
+        counters: Optional[CounterSet] = None,
+    ):
+        self.kube_client = kube_client
+        self.identity = identity
+        self.lease_name = lease_name
+        self.namespace = namespace
+        self.lease_duration_s = float(lease_duration_s)
+        # a third of the duration: two renew attempts may fail outright
+        # before the lease can lapse
+        self.renew_period_s = (
+            float(renew_period_s) if renew_period_s is not None else self.lease_duration_s / 3.0
+        )
+        self._clock = clock
+        self._sleep = sleep
+        self.counters = counters if counters is not None else trace.COUNTERS
+        self._lock = threading.Lock()
+        self._is_leader = False
+        self._fencing_token: Optional[int] = None
+        # while leader: when our grant lapses without a renew (the
+        # self-demotion deadline)
+        self._deadline: float = -float("inf")
+        self._ticks = 0
+        # the last observed remote state, for /debug/leader
+        self._observed_holder: Optional[str] = None
+        self._observed_transitions: Optional[int] = None
+        self._last_error: Optional[str] = None
+        # a retry schedule that outlives the lease is worthless: cap the
+        # wrapped client's lease-verb deadlines at the lease duration (only
+        # tightening; an operator's lower deadline stands)
+        policy = getattr(kube_client, "policy", None)
+        if policy is not None and hasattr(policy, "verb_deadlines"):
+            for verb in ("get_lease", "create_lease", "update_lease"):
+                if policy.deadline_for(verb) > self.lease_duration_s:
+                    policy.verb_deadlines[verb] = self.lease_duration_s
+        self._publish_gauge()
+
+    # -- the observe-decide-act round ------------------------------------------
+
+    def tick(self) -> bool:
+        """One election round: read the lease, then renew, take over,
+        create or follow as the observed state dictates.  Returns
+        :meth:`is_leader` afterwards.  Never raises: an unreachable API
+        leaves the current role to decay through the local deadline."""
+        now = self._clock()
+        with self._lock:
+            self._ticks += 1
+        try:
+            lease = self.kube_client.get_lease(self.namespace, self.lease_name)
+        except NotFoundError:
+            return self._create(now)
+        except Exception as exc:  # noqa: BLE001 — any API trouble is noted, never raised
+            self._note_error(f"get_lease: {exc}")
+            return self.is_leader()
+        spec = lease.get("spec") or {}
+        holder = spec.get("holderIdentity") or ""
+        renew_time = parse_lease_time(spec.get("renewTime"))
+        try:
+            duration = float(spec.get("leaseDurationSeconds") or self.lease_duration_s)
+        except (TypeError, ValueError):
+            duration = self.lease_duration_s
+        try:
+            transitions = int(spec.get("leaseTransitions") or 0)
+        except (TypeError, ValueError):
+            transitions = 0
+        with self._lock:
+            self._observed_holder = holder
+            self._observed_transitions = transitions
+        if holder == self.identity:
+            return self._renew(lease, spec, transitions, now)
+        if not holder or (renew_time + duration) <= now:
+            return self._take_over(lease, spec, transitions, now)
+        # a live foreign holder: follow
+        self._set_role(False, None)
+        return False
+
+    def _create(self, now: float) -> bool:
+        """The first acquirer of a missing lease; the 409 loser follows."""
+        lease = {
+            "apiVersion": "coordination.k8s.io/v1",
+            "kind": "Lease",
+            "metadata": {"name": self.lease_name, "namespace": self.namespace},
+            "spec": self._spec(now, transitions=1),
+        }
+        try:
+            self.kube_client.create_lease(lease)
+        except ConflictError:
+            self._set_role(False, None)
+            return False
+        except Exception as exc:  # noqa: BLE001
+            self._note_error(f"create_lease: {exc}")
+            return self.is_leader()
+        self._grant(1, now)
+        return True
+
+    def _renew(self, lease, spec, transitions: int, now: float) -> bool:
+        """We hold it: refresh renewTime under the observed
+        resourceVersion."""
+        spec = dict(spec)
+        spec["renewTime"] = format_micro_time(now)
+        spec["leaseDurationSeconds"] = max(1, int(round(self.lease_duration_s)))
+        lease = dict(lease, spec=spec)
+        try:
+            self.kube_client.update_lease(lease)
+        except ConflictError:
+            # a takeover already committed: deposed, our token is stale
+            self._set_role(False, None)
+            return False
+        except Exception as exc:  # noqa: BLE001
+            self._note_error(f"update_lease (renew): {exc}")
+            return self.is_leader()
+        self._grant(transitions, now)
+        return True
+
+    def _take_over(self, lease, spec, transitions: int, now: float) -> bool:
+        """The observed grant expired: claim it, bumping the fencing
+        token.  One contender's update commits."""
+        lease = dict(lease, spec=self._spec(now, transitions=transitions + 1))
+        try:
+            self.kube_client.update_lease(lease)
+        except ConflictError:
+            self._set_role(False, None)
+            return False
+        except Exception as exc:  # noqa: BLE001
+            self._note_error(f"update_lease (takeover): {exc}")
+            return self.is_leader()
+        klog.v(1).info_s(
+            f"leadership acquired by {self.identity} (fencing token {transitions + 1})", component="lease"
+        )
+        self._grant(transitions + 1, now)
+        return True
+
+    def _spec(self, now: float, transitions: int) -> Dict:
+        # the coordination.k8s.io/v1 wire types: MicroTime strings and an
+        # int32 duration (an API server rejects floats)
+        return {
+            "holderIdentity": self.identity,
+            "leaseDurationSeconds": max(1, int(round(self.lease_duration_s))),
+            "acquireTime": format_micro_time(now),
+            "renewTime": format_micro_time(now),
+            "leaseTransitions": transitions,
+        }
+
+    # -- role bookkeeping ------------------------------------------------------
+
+    def _grant(self, token: int, now: float) -> None:
+        with self._lock:
+            self._deadline = now + self.lease_duration_s
+            self._observed_holder = self.identity
+            self._observed_transitions = token
+            self._last_error = None
+        self._set_role(True, token)
+
+    def _set_role(self, leader: bool, token: Optional[int]) -> None:
+        with self._lock:
+            changed = leader != self._is_leader
+            self._is_leader = leader
+            self._fencing_token = token if leader else None
+        if changed:
+            klog.v(1).info_s(
+                f"{self.identity}: -> {ROLE_LEADER if leader else ROLE_FOLLOWER}", component="lease"
+            )
+            self.counters.inc("pas_leader_transitions_total")
+        self._publish_gauge()
+
+    def _note_error(self, message: str) -> None:
+        with self._lock:
+            self._last_error = message
+        klog.v(2).info_s(f"lease step failed ({self.identity}): {message}", component="lease")
+        # local expiry: an unrenewable grant decays on its own
+        self._maybe_self_demote()
+
+    def _maybe_self_demote(self) -> None:
+        # check and demote under one lock hold: a renew landing between a
+        # check and a demotion must not be clobbered by a stale observation
+        with self._lock:
+            if not (self._is_leader and self._clock() >= self._deadline):
+                return
+            self._is_leader = False
+            self._fencing_token = None
+        klog.v(1).info_s(f"{self.identity}: own lease expired without renew; stepping down", component="lease")
+        self.counters.inc("pas_leader_transitions_total")
+        self._publish_gauge()
+
+    def _publish_gauge(self) -> None:
+        with self._lock:
+            leader = self._is_leader
+        self.counters.set_gauge("pas_leader", 1 if leader else 0, labels={"replica": self.identity})
+
+    # -- the consumer surface --------------------------------------------------
+
+    def is_leader(self) -> bool:
+        """Whether this replica may run the singleton loops right now:
+        granted, and the grant has not locally expired."""
+        self._maybe_self_demote()
+        with self._lock:
+            return self._is_leader
+
+    def fencing_token(self) -> Optional[int]:
+        """The lease transition count under which this replica became
+        leader; None while follower."""
+        self._maybe_self_demote()
+        with self._lock:
+            return self._fencing_token
+
+    def check_fencing(self) -> bool:
+        """Re-read the lease and confirm this replica still holds it under
+        its token.  Any doubt (deposed, token moved, API unreachable)
+        answers False, and the caller must not actuate."""
+        token = self.fencing_token()
+        if token is None:
+            return False
+        try:
+            lease = self.kube_client.get_lease(self.namespace, self.lease_name)
+        except Exception as exc:  # noqa: BLE001
+            self._note_error(f"fencing check: {exc}")
+            return False
+        spec = lease.get("spec") or {}
+        ok = spec.get("holderIdentity") == self.identity and int(spec.get("leaseTransitions") or 0) == token
+        if not ok:
+            # the lease moved on; demote only while the refuted token is
+            # still ours, so a re-acquire racing this check stands
+            demoted = False
+            with self._lock:
+                if self._is_leader and self._fencing_token == token:
+                    self._is_leader = False
+                    self._fencing_token = None
+                    demoted = True
+            if demoted:
+                klog.v(1).info_s(
+                    f"{self.identity}: fencing check refused (lease moved on); stepping down",
+                    component="lease",
+                )
+                self.counters.inc("pas_leader_transitions_total")
+                self._publish_gauge()
+        return ok
+
+    # -- background loop -------------------------------------------------------
+
+    def start(self, stop: threading.Event) -> threading.Thread:
+        """Run :meth:`tick` every jittered renew period on a daemon thread
+        until ``stop`` is set."""
+        seed = stable_hash(self.identity)
+
+        def loop() -> None:
+            n = 0
+            while not stop.is_set():
+                n += 1
+                try:
+                    self.tick()
+                except Exception as exc:  # noqa: BLE001 — tick never raises; the loop must not die
+                    klog.error("lease tick failed: %r", exc)
+                self._sleep(self.renew_period_s * _deterministic_jitter(seed, n))
+
+        thread = threading.Thread(target=loop, daemon=True)
+        thread.start()
+        return thread
+
+    # -- introspection (/debug/leader) -----------------------------------------
+
+    def role(self) -> str:
+        return ROLE_LEADER if self.is_leader() else ROLE_FOLLOWER
+
+    def readiness_condition(self):
+        """The informational ``/readyz`` ``leadership`` condition: always
+        ok (a follower serves the verbs at full quality); the reason names
+        the role."""
+        if self.is_leader():
+            return True, f"leader (fencing token {self.fencing_token()})"
+        with self._lock:
+            holder = self._observed_holder
+        return True, f"follower (holder: {holder or 'unknown'})"
+
+    def status(self) -> Dict:
+        leader = self.is_leader()  # runs the self-demotion first
+        with self._lock:
+            return {
+                "enabled": True,
+                "role": ROLE_LEADER if leader else ROLE_FOLLOWER,
+                "identity": self.identity,
+                "fencing_token": self._fencing_token,
+                "lease": {
+                    "name": self.lease_name,
+                    "namespace": self.namespace,
+                    "duration_s": self.lease_duration_s,
+                    "renew_period_s": self.renew_period_s,
+                    "holder": self._observed_holder,
+                    "transitions": self._observed_transitions,
+                },
+                "ticks": self._ticks,
+                "last_error": self._last_error,
+            }
+
+    def to_json(self) -> bytes:
+        return json.dumps(self.status()).encode() + b"\n"

@@ -280,6 +280,23 @@ class PrioritizeFastPath:
                         sel = np.concatenate(([prow], np.delete(sel, at[0])))
             return self._encode(table, sel)
 
+    def neutral_bytes(self, view: DeviceView, names: List[str]) -> bytes:
+        """The degraded-mode neutral Prioritize body: every candidate, in
+        request order, scored 0.  The bytes ``encode_host_priority_list``
+        gives over ``HostPriority(name, 0)``, joined from the view's
+        pre-rendered fragments; a name the view does not hold is rendered
+        here."""
+        if not names:
+            return b"[]\n"
+        table = self._table_for(view)
+        fragments, index = table.fragments, table.node_index
+        parts = [
+            fragments[row] if (row := index.get(name)) is not None
+            else f'{{"Host": {json.dumps(name)}, "Score": '.encode()
+            for name in names
+        ]
+        return b"[" + b"0}, ".join(parts) + b"0}]\n"
+
     @staticmethod
     def _encode(table: _ViewTable, sel: np.ndarray) -> bytes:
         k = sel.size

@@ -103,6 +103,13 @@ class MetricEnforcer:
         # per-cycle violation subscribers ``(strategy_type, {node:
         # [policy names]})``, called at the end of every enforcement pass
         self.violation_observers: List = []
+        # the tas.degraded.DegradedModeController: while it reports
+        # evictions suspended (stale telemetry, a kube circuit not closed),
+        # the deschedule strategy skips its label pass
+        self.degraded = None
+        # the kube.lease.LeaseElector under --leaderElect: the label pass
+        # runs on the leader only; followers evaluate and publish
+        self.leadership = None
         # the registry lock: held across each enforcement pass, across a
         # removal and its cleanup, and by the controller across a policy
         # update, so a pass sees a policy wholly before or wholly after

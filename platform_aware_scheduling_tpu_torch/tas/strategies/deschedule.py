@@ -128,9 +128,34 @@ class Strategy:
 
     def enforce(self, enforcer: core.MetricEnforcer, cache) -> int:
         """Compute the violations of every registered deschedule policy,
-        list the nodes whose labels can change, and patch them.  The JAX
-        copy's leader-only and degraded-mode branches come back with the
-        HA and degraded-mode planes."""
+        list the nodes whose labels can change, and patch them.
+
+        With a leader elector on the enforcer, a follower evaluates and
+        publishes the violations and writes no label, so N replicas make
+        one stream of labels.  While the degraded-mode controller reports
+        evictions suspended (telemetry stale, or the kube circuit not
+        closed), the label pass is skipped: violations from data the
+        service cannot trust never become ``=violating`` labels.  The
+        cycle still publishes them, and makes one ``list_nodes`` call: with
+        the label pass skipped nothing else may call the kube group, and a
+        circuit leaves half-open only through a call.  An open circuit
+        refuses it at once; once the reset timeout has passed it is the
+        probe that closes the circuit and ends the suspension."""
+        leadership = enforcer.leadership
+        if leadership is not None and not leadership.is_leader():
+            enforcer.publish_violations(STRATEGY_TYPE, self._node_status_for_strategy(enforcer, cache))
+            return 0
+        degraded = enforcer.degraded
+        if degraded is not None:
+            allowed, reason = degraded.evictions_allowed()
+            if not allowed:
+                klog.v(2).info_s(f"deschedule enforcement suspended: {reason}", component="controller")
+                try:
+                    enforcer.kube_client.list_nodes()
+                except Exception as probe_exc:  # noqa: BLE001 — the probe's failure is the breaker's business
+                    klog.v(4).info_s(f"suspended-cycle kube probe: {probe_exc}", component="controller")
+                enforcer.publish_violations(STRATEGY_TYPE, self._node_status_for_strategy(enforcer, cache))
+                return 0
         violations = self._node_status_for_strategy(enforcer, cache)
         try:
             nodes = self._nodes_needing_labels(enforcer, violations)

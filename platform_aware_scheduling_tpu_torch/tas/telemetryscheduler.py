@@ -32,10 +32,18 @@ counts on ``pas_prioritize_host_fallback_total`` or
 ``pas_filter_host_fallback_total``; a warm pass that raises clears the
 ``kernels_warmed`` readiness condition until one succeeds.
 
-The JAX extender's optional planes (degraded mode, shards, admission,
-gangs, forecasts, SLOs, control, flight recorder, solve observatory,
-leadership, rebalancer) and its native wire path are not ported yet;
-with them unset the JAX verbs answer with the same bytes as this module.
+With a degraded-mode controller attached (``degraded``), the verbs
+degrade as the JAX extender's do while telemetry is stale or a circuit is
+open: Prioritize serves last-known-good scores (its span tagged
+``degraded``) and then neutral ones, every candidate scored 0; Filter
+fails open or closed per ``--degradedMode``.  A leader elector
+(``leadership``) adds its ``/readyz`` condition and ``/debug/leader``;
+every replica serves the verbs alike.
+
+The JAX extender's other optional planes (shards, admission, gangs,
+forecasts, SLOs, control, flight recorder, solve observatory, rebalancer)
+and its native wire path are not ported yet; with them unset the JAX
+verbs answer with the same bytes as this module.
 """
 
 from __future__ import annotations
@@ -57,6 +65,7 @@ from platform_aware_scheduling_tpu_torch.ops.state import (
     DeviceView,
     TensorStateMirror,
 )
+from platform_aware_scheduling_tpu_torch.tas import degraded as degraded_mode
 from platform_aware_scheduling_tpu_torch.tas.cache import AutoUpdatingCache, CacheMissError
 from platform_aware_scheduling_tpu_torch.tas.fastpath import PrioritizeFastPath
 from platform_aware_scheduling_tpu_torch.tas.policy.v1alpha1 import TASPolicy, TASPolicyRule
@@ -89,6 +98,14 @@ class MetricsExtender:
         self.node_cache_capable = node_cache_capable
         self.recorder = LatencyRecorder()
         self.planner = planner
+        # the tas.degraded.DegradedModeController, set by assembly: while
+        # telemetry is stale or a circuit is open, Filter fails open or
+        # closed and Prioritize serves last-known-good, then neutral,
+        # scores.  None keeps the exact behaviour
+        self.degraded = None
+        # the kube.lease.LeaseElector under --leaderElect: its role shows
+        # on /readyz and /debug/leader; the verbs do not depend on it
+        self.leadership = None
         # request-independent ranking/violation caches + byte encoder
         self.fastpath = PrioritizeFastPath() if mirror is not None else None
         # /readyz "kernels_warmed": whether the latest warm pass completed
@@ -138,11 +155,18 @@ class MetricsExtender:
 
     def readiness_conditions(self):
         """The /readyz conditions: kernels warmed (the fastpath's warm
-        pass completed) and telemetry freshness."""
-        return [
+        pass completed) and telemetry freshness, then, when attached, the
+        degraded-mode controller's and the elector's (the latter always
+        ok: a follower serves at full quality)."""
+        conditions = [
             ("kernels_warmed", self._warm_status),
             ("telemetry_fresh", self.cache.telemetry_freshness),
         ]
+        if self.degraded is not None:
+            conditions.append(("degraded_mode", self.degraded.readiness_condition))
+        if self.leadership is not None:
+            conditions.append(("leadership", self.leadership.readiness_condition))
+        return conditions
 
     def _warm_status(self):
         if self.fastpath is None:
@@ -163,21 +187,24 @@ class MetricsExtender:
         span = trace.of(request)
         span.set("verb", "prioritize")
         try:
+            if self.degraded is not None:
+                action, reason = self.degraded.prioritize_decision()
+                if action == degraded_mode.ACTION_NEUTRAL:
+                    # too stale even for last-known-good: every candidate
+                    # scored alike keeps the scheduler unblocked without a
+                    # stale ranking mis-ordering placements
+                    span.set("degraded", reason)
+                    span.set("path", "neutral")
+                    return self._neutral_prioritize(request, span)
+                if action == degraded_mode.ACTION_LAST_KNOWN_GOOD:
+                    span.set("degraded", reason)  # serving retained scores
             trace.COUNTERS.inc("pas_prioritize_exact_total")
             span.set("path", "exact")
             klog.v(2).info_s("Received prioritize request", component="extender")
-            with span.stage("decode"):
-                args = self._decode(request)
-            if args is None:
-                return HTTPResponse()
-            names = self._candidate_names(args)
-            if not names:
-                klog.v(2).info_s("bad extender arguments. No nodes in list", component="extender")
-                return HTTPResponse()
-            status = 200
-            if TAS_POLICY_LABEL not in args.pod.get_labels():
-                klog.v(2).info_s("no policy associated with pod", component="extender")
-                status = 400  # and still prioritize
+            decoded = self._decode_prioritize_args(request, span)
+            if isinstance(decoded, HTTPResponse):
+                return decoded
+            args, names, status = decoded
             pod_key = f"{args.pod.namespace}/{args.pod.name}"
             span.set("pod", pod_key)
             body = self._prioritize_body(args, names, span=span)
@@ -192,12 +219,57 @@ class MetricsExtender:
         finally:
             self.recorder.observe("prioritize", time.perf_counter() - start, trace_id=span.trace_id)
 
+    def _decode_prioritize_args(self, request: HTTPRequest, span):
+        """The exact path's decode quirks, shared with the neutral path:
+        a decode failure or an empty candidate list -> empty 200; a pod
+        without the policy label -> 400, and the verb still answers.
+        Returns ``(args, names, status)`` or the quirk's response."""
+        with span.stage("decode"):
+            args = self._decode(request)
+        if args is None:
+            return HTTPResponse()
+        names = self._candidate_names(args)
+        if not names:
+            klog.v(2).info_s("bad extender arguments. No nodes in list", component="extender")
+            return HTTPResponse()
+        status = 200
+        if TAS_POLICY_LABEL not in args.pod.get_labels():
+            klog.v(2).info_s("no policy associated with pod", component="extender")
+            status = 400  # and still prioritize
+        return args, names, status
+
+    def _neutral_prioritize(self, request: HTTPRequest, span) -> HTTPResponse:
+        """Degraded Prioritize: every candidate scored 0.  With a mirror the
+        body is joined from the fastpath's pre-rendered name fragments: the
+        same bytes, without the generic encoder's object per candidate."""
+        decoded = self._decode_prioritize_args(request, span)
+        if isinstance(decoded, HTTPResponse):
+            return decoded
+        args, names, status = decoded
+        with span.stage("encode"):
+            if self.fastpath is not None:
+                body = self.fastpath.neutral_bytes(self.mirror.device_view(), names)
+            else:
+                body = encode_host_priority_list([HostPriority(host=name, score=0) for name in names])
+        self._record_prioritize(
+            span, args.pod.namespace, args.pod.name,
+            args.pod.get_labels().get(TAS_POLICY_LABEL, ""),
+            "neutral", None, len(names),
+        )
+        return HTTPResponse.json(body, status=status)
+
     def filter(self, request: HTTPRequest) -> HTTPResponse:
         start = time.perf_counter()
         span = trace.of(request)
         span.set("verb", "filter")
         try:
             klog.v(2).info_s("Filter request received", component="extender")
+            degraded_action = None
+            if self.degraded is not None:
+                action, reason = self.degraded.filter_decision()
+                if action in (degraded_mode.ACTION_FAIL_OPEN, degraded_mode.ACTION_FAIL_CLOSED):
+                    degraded_action = action
+                    span.set("degraded", reason)
             # no response cache without the native wire path: every Filter
             # takes the exact flow
             span.set("filter_cache", "bypass")
@@ -207,7 +279,7 @@ class MetricsExtender:
             if args is None:
                 return HTTPResponse()
             with span.stage("kernel"):
-                result = self._filter_nodes(args, span)
+                result = self._filter_nodes(args, span, degraded=degraded_action)
             if result is None:
                 klog.v(2).info_s("No filtered nodes returned", component="extender")
                 return HTTPResponse.json(b"null\n", status=404)
@@ -217,16 +289,22 @@ class MetricsExtender:
                 body = result.to_json()
             path = str(span.attrs.get("filter_cache", "exact"))
             if decisions.DECISIONS.enabled:
+                record_path, reason_code = path, decisions.CODE_RULE_VIOLATION
+                if degraded_action == degraded_mode.ACTION_FAIL_CLOSED:
+                    record_path, reason_code = "fail_closed", decisions.CODE_FAIL_CLOSED
+                elif degraded_action == degraded_mode.ACTION_FAIL_OPEN:
+                    record_path = "fail_open"
                 decisions.DECISIONS.record_filter(
                     request_id=span.trace_id,
                     pod_namespace=args.pod.namespace,
                     pod_name=args.pod.name,
                     policy=args.pod.get_labels().get(TAS_POLICY_LABEL, ""),
-                    path=path,
+                    path=record_path,
                     candidates=len(self._candidate_names(args)),
                     filtered=len(result.failed_nodes),
                     violating=dict(result.failed_nodes),
                     violating_scope="request",
+                    reason_code=reason_code,
                 )
             events.JOURNAL.publish(
                 "verdict",
@@ -405,9 +483,14 @@ class MetricsExtender:
 
     # -- filter logic ----------------------------------------------------------
 
-    def _filter_nodes(self, args: Args, span=trace.NULL_SPAN) -> Optional[FilterResult]:
+    def _filter_nodes(
+        self, args: Args, span=trace.NULL_SPAN, degraded: Optional[str] = None
+    ) -> Optional[FilterResult]:
         """filterNodes: the pod's policy, its dontschedule violation set,
-        and the candidates split into passing and failed."""
+        and the candidates split into passing and failed.  ``degraded``
+        overrides only the telemetry-dependent violation set: fail_open ->
+        no node violates, fail_closed -> every candidate does; the policy
+        lookup (informer-fed, not telemetry) stays exact."""
         try:
             policy = self._policy_from_pod(args.pod)
         except Exception as exc:
@@ -420,7 +503,13 @@ class MetricsExtender:
                 component="extender",
             )
             return None
-        violating = self._violating_nodes(policy, strategy, span)
+        if degraded == degraded_mode.ACTION_FAIL_OPEN:
+            violating: Dict[str, str] = {}
+        elif degraded == degraded_mode.ACTION_FAIL_CLOSED:
+            names = [node.name for node in args.nodes] if args.nodes else list(args.node_names or [])
+            violating = {name: decisions.REASON_FAIL_CLOSED for name in names}
+        else:
+            violating = self._violating_nodes(policy, strategy, span)
         if not args.nodes:
             if self.node_cache_capable and args.node_names:
                 return self._filter_node_names(policy, args.node_names, violating)

@@ -43,6 +43,9 @@ CODE_LABELS: Dict[int, str] = {
     CODE_FAIL_CLOSED: "fail_closed",
 }
 
+#: the FailedNodes reason of every candidate while Filter fails closed
+REASON_FAIL_CLOSED = "degraded fail-closed"
+
 _OP_SYMBOLS = {"LessThan": "<", "GreaterThan": ">", "Equals": "=="}
 
 

@@ -73,6 +73,10 @@ declare("pas_kube_retry_total", "counter", "API-call retries performed by the fa
 declare("pas_kube_giveup_total", "counter", "API calls abandoned after exhausting the retry budget or deadline (label: verb).")
 declare("pas_circuit_state", "gauge", "Circuit-breaker state per endpoint group: 0 closed, 1 half-open, 2 open (label: group).")
 declare("pas_circuit_transitions_total", "counter", "Circuit-breaker state transitions (labels: group, to).")
+# degraded mode (tas/degraded.py) and leader election (kube/lease.py)
+declare("pas_degraded", "gauge", "1 while the named subsystem runs degraded: telemetry (stale/unrefreshable), kube_api / metrics_api (circuit not closed), evictions (suspended) (label: subsystem).")
+declare("pas_leader", "gauge", "1 while this replica holds the leadership lease and runs the singleton actuation loops (label: replica).")
+declare("pas_leader_transitions_total", "counter", "Local leadership role changes (gained or lost) observed by this replica's elector.")
 declare("pas_decision_records_total", "counter", "Scheduling decisions recorded into the decision log (label: verb).")
 declare("pas_decision_filtered_nodes_total", "counter", "Nodes filtered out of scheduling decisions, by reason class (label: reason).")
 declare("pas_decision_open", "gauge", "Decision records currently awaiting outcome feedback (pod bind).")

@@ -3,8 +3,11 @@ planner's informers (``BatchPlanner.watch``), held against the JAX
 package's.  The flag surface keeps the JAX names and defaults and refuses
 every flag of an unported plane; ``main`` obeys the device rule; the four
 scenarios of ``tests/test_e2e.py`` run on twin fake API servers, one
-under each package's ``assemble``, and every response byte and node label
-must be equal."""
+under each package's ``assemble`` wired as its ``main`` wires it (a
+fault-tolerant client and its circuit breakers), and every response byte
+and node label must be equal; two replicas with leader election on one
+fake label the cluster as a JAX pair does, through a failover.  Every
+test that assembles a service stops it and joins its threads."""
 
 import json
 import subprocess
@@ -19,6 +22,7 @@ import pytest
 import torch
 
 from platform_aware_scheduling_tpu.cmd import tas as jax_tas
+from platform_aware_scheduling_tpu.kube.lease import LeaseElector as JaxElector
 from platform_aware_scheduling_tpu.ops.state import TensorStateMirror as JaxMirror
 from platform_aware_scheduling_tpu.tas.cache import AutoUpdatingCache as JaxCache
 from platform_aware_scheduling_tpu.tas.metrics import CustomMetricsClient as JaxMetricsClient
@@ -27,8 +31,12 @@ from platform_aware_scheduling_tpu.tas.planner import BatchPlanner as JaxPlanner
 from platform_aware_scheduling_tpu.tas.policy.v1alpha1 import TASPolicy as JaxPolicy
 from platform_aware_scheduling_tpu.testing import builders as jax_builders
 from platform_aware_scheduling_tpu.testing.fake_kube import FakeKubeClient as JaxFake
+from platform_aware_scheduling_tpu.testing.faults import FakeClock as JaxClock
+from platform_aware_scheduling_tpu.testing.faults import FaultPlan as JaxPlan
+from platform_aware_scheduling_tpu.testing.faults import FaultyClient as JaxFaulty
 from platform_aware_scheduling_tpu.utils.quantity import Quantity as JaxQuantity
 from platform_aware_scheduling_tpu_torch.cmd import common, tas
+from platform_aware_scheduling_tpu_torch.kube.lease import LeaseElector
 from platform_aware_scheduling_tpu_torch.kube.objects import Pod
 from platform_aware_scheduling_tpu_torch.kube.retry import FaultTolerantClient
 from platform_aware_scheduling_tpu_torch.ops.state import TensorStateMirror
@@ -38,6 +46,7 @@ from platform_aware_scheduling_tpu_torch.tas.planner import BatchPlanner
 from platform_aware_scheduling_tpu_torch.tas.policy.v1alpha1 import TASPolicy
 from platform_aware_scheduling_tpu_torch.testing import builders
 from platform_aware_scheduling_tpu_torch.testing.fake_kube import FakeKubeClient
+from platform_aware_scheduling_tpu_torch.testing.faults import FakeClock, FaultPlan, FaultyClient
 from platform_aware_scheduling_tpu_torch.utils import decisions, events
 from platform_aware_scheduling_tpu_torch.utils.quantity import Quantity
 
@@ -50,6 +59,8 @@ PORTED = [
     "--retryMaxAttempts", "--retryBaseDelay", "--retryMaxDelay", "--retryDeadline",
     "--circuitFailureThreshold", "--circuitResetTimeout",
     "--decisionLog", "--decisionLogSize", "--events", "--eventsSize",
+    "--degradedMode",
+    "--leaderElect", "--leaseName", "--leaseNamespace", "--leaseDuration", "--leaseRenewPeriod", "--replicaId",
 ]
 
 
@@ -280,24 +291,70 @@ def wait_until(pred, timeout=30.0):
     return False
 
 
-class Service:
-    """One package's assembled service over its own fake API server."""
+def fake_world(jax: bool):
+    """A fake API server holding the three nodes and their metrics."""
+    fake_cls, make_node = (JaxFake, jax_builders.make_node) if jax else (FakeKubeClient, builders.make_node)
+    kube = fake_cls()
+    for name in NODES:
+        kube.add_node(make_node(name))
+    for metric, per_node in METRICS.items():
+        for node, value in per_node.items():
+            kube.set_node_metric(metric, node, str(value))
+    return kube
 
-    def __init__(self, jax: bool):
-        fake_cls, make_node = (JaxFake, jax_builders.make_node) if jax else (FakeKubeClient, builders.make_node)
-        self.kube = fake_cls()
-        for name in NODES:
-            self.kube.add_node(make_node(name))
-        for metric, per_node in METRICS.items():
-            for node, value in per_node.items():
-                self.kube.set_node_metric(metric, node, str(value))
+
+def join_threads_started_since(before, fakes, timeout=20.0):
+    """Join every thread started since the snapshot ``before``; none may
+    outlive its stop.  A fake's idle watch blocks its informer until the
+    next event, so each hub first gets one event that a stopped informer
+    returns on before reading it."""
+    for kube in fakes:
+        for hub in kube._hubs.values():
+            hub.publish("BOOKMARK", {})
+    deadline = time.monotonic() + timeout
+    started = [t for t in threading.enumerate() if t not in before]
+    for thread in started:
+        thread.join(max(0.0, deadline - time.monotonic()))
+    assert not [t for t in started if t.is_alive()], "threads still running after their stop"
+
+
+LEASE_S = 15.0
+
+
+class Service:
+    """One package's service over a fake API server, assembled as its
+    ``main`` assembles it: a fault-tolerant client with the circuit
+    breakers of the default flags, the degraded-mode controller over them
+    and, given an ``identity``, a lease elector on ``clock``, which the
+    test ticks.  A FaultPlan with no faults between the fault-tolerant
+    client and the fake counts this replica's calls by verb."""
+
+    def __init__(self, jax: bool, kube=None, identity=None, clock=None):
+        self.kube = fake_world(jax) if kube is None else kube
+        pkg = jax_tas if jax else tas
+        args = pkg.build_arg_parser().parse_args([])
+        policy, self.breakers = pkg.common.build_fault_tolerance(args)
+        self.calls = JaxPlan() if jax else FaultPlan()
+        api = pkg.common.wrap_kube_client((JaxFaulty if jax else FaultyClient)(self.kube, self.calls), policy, self.breakers)
+        self.elector = None
+        if identity is not None:
+            self.elector = (JaxElector if jax else LeaseElector)(
+                api, identity, lease_name="tas", lease_duration_s=LEASE_S, clock=clock.now
+            )
+        wiring = {"breakers": self.breakers, "degraded_mode": args.degradedMode, "leadership": self.elector}
         if jax:
-            parts = jax_tas.assemble(self.kube, JaxMetricsClient(self.kube), SYNC_PERIOD_S)
+            parts = jax_tas.assemble(api, JaxMetricsClient(api), SYNC_PERIOD_S, **wiring)
             self.server = jax_tas.build_server(parts[2])
         else:
-            parts = tas.assemble(self.kube, CustomMetricsClient(self.kube), SYNC_PERIOD_S, device="cpu")
+            parts = tas.assemble(api, CustomMetricsClient(api), SYNC_PERIOD_S, device="cpu", **wiring)
             self.server = tas.build_server(parts[2])
         self.cache, self.mirror, self.extender, self.controller, self.enforcer, self.stop = parts
+        # the 1 s freshness bound of a 50 ms period is shorter than a loaded
+        # test worker may starve the refresh thread; a starved side would
+        # degrade while its twin does not
+        self.cache.freshness_max_age_s = 10.0
+        self.cycles = []  # one entry a deschedule cycle, published by every branch
+        self.enforcer.violation_observers.append(lambda kind, violations: self.cycles.append(dict(violations)))
         threading.Thread(
             target=lambda: self.server.start_server(port="0", unsafe=True, host="127.0.0.1", block=True),
             daemon=True,
@@ -326,8 +383,14 @@ class Service:
 
 class TwinServices:
     def __init__(self):
+        self.threads = set(threading.enumerate())
         self.jax, self.port = Service(True), Service(False)
         self.sides = (self.jax, self.port)
+
+    def close(self):
+        for side in self.sides:
+            side.close()
+        join_threads_started_since(self.threads, [side.kube for side in self.sides])
 
     def crd(self, op, *args):
         for side in self.sides:
@@ -353,8 +416,7 @@ def twins(monkeypatch):
     monkeypatch.setenv("PAS_TPU_NO_NATIVE", "1")  # the JAX wire path the port serves
     services = TwinServices()
     yield services
-    for side in services.sides:
-        side.close()
+    services.close()
 
 
 def sched_args(policy_name):
@@ -427,6 +489,150 @@ class TestE2EParity:
         port = twins.port
         assert port.controller.informer.has_synced()
         assert port.mirror.device.type == "cpu" and port.extender.planner is None
+        # main's wiring: one degraded-mode controller over the client's breakers
+        assert port.extender.degraded is port.enforcer.degraded
+        assert port.extender.degraded.breakers is port.breakers and port.enforcer.leadership is None
+
+
+# -- two replicas with leader election on one fake, against a JAX pair ----------------------
+
+
+class ReplicaPair:
+    """Two replicas of one package on one fake API server, each assembled
+    as ``main`` assembles it with ``--leaderElect``; their electors share
+    one FakeClock and are ticked by the test."""
+
+    def __init__(self, jax: bool):
+        self.kube = fake_world(jax)
+        self.clock = (JaxClock if jax else FakeClock)()
+        self.a = Service(jax, self.kube, "replica-a", self.clock)
+        self.b = Service(jax, self.kube, "replica-b", self.clock)
+
+    def lease(self):
+        """The lease object as JSON, without the fake's resourceVersion
+        (a count of every write the fake took)."""
+        lease = self.kube.get_lease("default", "tas")
+        lease["metadata"].pop("resourceVersion")
+        return lease
+
+    def labels(self):
+        return {n: self.kube.get_node(n).get_labels() for n in NODES}
+
+
+def wait_for_cycles(replica, count, timeout=30.0):
+    """Wait until ``replica`` has run ``count`` more deschedule cycles."""
+    seen = len(replica.cycles)
+    return wait_until(lambda: len(replica.cycles) >= seen + count, timeout)
+
+
+def test_two_replicas_label_once_and_fail_over_like_the_jax_pair():
+    """The follower evaluates and publishes every cycle and writes no
+    patch; after the leader crashes (its loops stop, its lease is not
+    released) the follower takes over once the lease runs out, with the
+    fencing token one higher, and labels the cluster.  Roles, tokens,
+    lease objects and labels equal the JAX pair's at every step."""
+    threads = set(threading.enumerate())
+    pairs = [ReplicaPair(True), ReplicaPair(False)]
+    try:
+        for pair in pairs:
+            assert pair.a.elector.tick() is True and pair.b.elector.tick() is False
+        jax_pair, port_pair = pairs
+        assert port_pair.lease() == jax_pair.lease()
+        for pair in pairs:
+            pair.kube.create_taspolicy(demo_policy())
+        assert all(wait_until(lambda p=p: p.labels()["kind-worker2"].get("e2e-policy") == "violating") for p in pairs)
+        for pair in pairs:
+            assert wait_for_cycles(pair.b, 3)
+            assert pair.b.calls.call_count("patch_node") == 0 and pair.a.calls.call_count("patch_node") > 0
+            # the follower's published violations are the leader's
+            assert pair.b.cycles[-1] == {"kind-worker2": ["e2e-policy"]}
+        assert port_pair.labels() == jax_pair.labels()
+
+        # the leader crashes; its lease is not released
+        for pair in pairs:
+            pair.a.close()
+            pair.kube.set_node_metric("deschedule1_metric", "kind-worker2", "1")
+        for pair in pairs:
+            assert wait_for_cycles(pair.b, 3)
+            # the lease is live on the clock: the follower still follows
+            assert pair.b.elector.tick() is False and pair.b.calls.call_count("patch_node") == 0
+            assert pair.labels()["kind-worker2"]["e2e-policy"] == "violating"
+            pair.clock.advance(LEASE_S)
+            assert pair.a.elector.is_leader() is False  # its own grant lapsed
+            assert pair.b.elector.tick() is True and pair.b.elector.fencing_token() == 2
+        assert all(wait_until(lambda p=p: p.labels()["kind-worker2"].get("e2e-policy") == "null") for p in pairs)
+        assert port_pair.lease() == jax_pair.lease()
+        assert port_pair.lease()["spec"]["holderIdentity"] == "replica-b"
+        assert port_pair.labels() == jax_pair.labels()
+        assert [p.a.calls.call_count("patch_node") > 0 for p in pairs] == [True, True]
+    finally:
+        for pair in pairs:
+            for replica in (pair.a, pair.b):
+                replica.close()
+        join_threads_started_since(threads, [pair.kube for pair in pairs])
+
+
+def test_main_builds_the_degraded_controller_and_the_elector(monkeypatch):
+    """``main`` with ``--leaderElect`` on a fake cluster: ``/readyz``
+    carries the ``degraded_mode`` and ``leadership`` conditions after the
+    extender's own, and ``/debug/leader`` answers the elector's state."""
+    kube = FakeKubeClient()
+    kube.add_node(builders.make_node("n0"))
+    parts, servers, handlers, answers = [], [], {}, {}
+    real_assemble, real_build_server = tas.assemble, tas.build_server
+
+    def assemble(*args, **kwargs):
+        parts.extend(real_assemble(*args, **kwargs))
+        return tuple(parts)
+
+    monkeypatch.setattr(tas, "resolve_device", lambda _device: torch.device("cpu"))
+    monkeypatch.setattr(tas, "get_kube_client", lambda _path: kube)
+    monkeypatch.setattr(tas, "assemble", assemble)
+    monkeypatch.setattr(tas, "build_server", lambda ext: servers.append(real_build_server(ext)) or servers[-1])
+    monkeypatch.setattr(tas, "tune_for_serving", lambda: None)
+    monkeypatch.setattr(tas.signal, "signal", lambda sig, handler: handlers.__setitem__(sig, handler))
+
+    def get(path):
+        try:
+            with urllib.request.urlopen(f"http://127.0.0.1:{servers[0].port}{path}", timeout=10) as resp:
+                return resp.status, resp.read()
+        except urllib.error.HTTPError as err:
+            return err.code, err.read()
+
+    def operator():
+        try:
+            leading = lambda: parts and parts[2].leadership.is_leader()  # noqa: E731
+            if wait_until(lambda: servers and servers[0].wait_ready(0.01) and leading(), 30):
+                answers["readyz"] = get("/readyz")
+                answers["leader"] = get("/debug/leader")
+        finally:
+            wait_until(lambda: tas.signal.SIGTERM in handlers, 30)
+            handlers[tas.signal.SIGTERM](tas.signal.SIGTERM, None)
+
+    threads = set(threading.enumerate())
+    helper = threading.Thread(target=operator, daemon=True)
+    helper.start()
+    verbosity = tas.klog._verbosity
+    argv = ["--unsafe", "--port=0", "--syncPeriod=50ms", "--leaderElect", "--replicaId=r0",
+            "--leaseRenewPeriod=50ms", "--degradedMode=fail-closed"]
+    try:
+        assert tas.main(argv) == 0
+    finally:
+        tas.klog.set_verbosity(verbosity)
+        if parts:
+            parts[5].set()
+    helper.join(10)
+    join_threads_started_since(threads, [kube])
+    extender, enforcer = parts[2], parts[4]
+    assert extender.degraded is enforcer.degraded and extender.degraded.mode == "fail-closed"
+    assert enforcer.leadership is extender.leadership and extender.leadership.identity == "r0"
+    _status, body = answers["readyz"]
+    names = [c["name"] for c in json.loads(body)["conditions"]]
+    assert names[names.index("telemetry_fresh") + 1:][:2] == ["degraded_mode", "leadership"]
+    status, body = answers["leader"]
+    leader = json.loads(body)
+    assert status == 200 and leader["role"] == "leader" and leader["fencing_token"] == 1
+    assert leader["lease"]["holder"] == "r0" and leader["lease"]["renew_period_s"] == 0.05
 
 
 # -- BatchPlanner.watch against the JAX planner's -------------------------------------------

@@ -91,13 +91,16 @@ SERVICE_MODULES = [
         "cmd.tas",
         "kube.client",
         "kube.informer",
+        "kube.lease",
         "kube.retry",
         "tas.controller",
+        "tas.degraded",
         "tas.strategies.deschedule",
         "tas.strategies.scheduleonmetric",
         "testing",
         "testing.builders",
         "testing.fake_kube",
+        "testing.faults",
         "utils.duration",
         "utils.gctuning",
     )

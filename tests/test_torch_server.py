@@ -108,10 +108,12 @@ def test_debug_endpoints_and_index():
     get = lambda path: port_srv.route(server.HTTPRequest("GET", path, {}, b""))  # noqa: E731
     index = json.loads(get("/debug").body)["endpoints"]
     assert [e["path"] for e in index] == [
-        "/healthz", "/readyz", "/metrics", "/debug/traces", "/debug/decisions", "/debug/explain",
+        "/healthz", "/readyz", "/metrics", "/debug/traces", "/debug/decisions", "/debug/leader", "/debug/explain",
     ]
     for entry in index:
-        assert get(entry["path"] + ("?pod=default/p" if entry["path"] == "/debug/explain" else "")).status == 200
+        # no elector is wired here: /debug/leader answers its plane-off 404
+        want = 404 if entry["path"] == "/debug/leader" else 200
+        assert get(entry["path"] + ("?pod=default/p" if entry["path"] == "/debug/explain" else "")).status == want
     assert get("/metrics").body == b"m 1\n"
     ready = json.loads(get("/readyz").body)
     assert {c["name"] for c in ready["conditions"]} == {"kernels_warmed", "telemetry_fresh"}
