@@ -18,9 +18,16 @@ sets.  Then the service phase runs the TAS service as ``cmd/tas.main``
 wires it (degraded mode, leader election) over the port's fake API server
 at the same size, and the faults phase adds a second replica and drives a
 metrics-API outage, a kube-API outage and a failover through a shared
-FaultPlan.  Prints the card, the timings (the kernel's two stages and its
-rescans at the main path's inputs and three others; the verbs' p50/p99,
-their slowest requests' stages and the warm passes), a
+FaultPlan.  Last, the GAS phase serves the GAS extender as ``cmd/gas.main``
+wires it over a 10,000-node GPU cluster in the fake API server and drives
+a burst of 300 Filters and their Binds over a socket, every Filter held
+against a CPU-mirror twin and the host loop; each Filter that misses the
+fits cache launches the CUDA first-fit bin-pack kernel once (held exactly
+against its plain version on the card beforehand, on edge cases and
+random states).  Prints the card, the timings (the greedy kernel's two
+stages and its rescans at the main path's inputs and three others; the
+verbs' p50/p99, their slowest requests' stages and the warm passes; GAS
+Filter and Bind p50/p99 and the bin-pack kernel's time), a
 ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
 result line, when there is no GPU, when the package is not beside this
@@ -32,6 +39,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import logging
 import statistics
 import subprocess
 import sys
@@ -2208,6 +2216,631 @@ def check_faults_limits(s: dict) -> None:
     check(worst <= ENFORCE_CYCLE_LIMIT_S, f"faults: a cycle took {worst * 1e3:.3f} ms, over its limit")
 
 
+# -- phase 9: the GAS extender -----------------------------------------------------
+
+GAS_CARDS = 8
+GAS_BURST = 300
+GAS_NO_GPU_SHARE = 0.01  # nodes without the cards label
+GAS_VANISHED_SHARE = 0.01  # nodes whose label lost a card that still carries usage
+GAS_BOOKED_CARD_SHARE = 0.8  # cards with a booked share
+GAS_SHARE_MILLICORES = (250, 500, 750, 1000)  # a booked card's millicores, of 1000
+GAS_RANDOM_PARITY_STATES = 64
+INT64_MAX = 2**63 - 1
+
+
+def gas_node_names() -> list:
+    return [f"gpu-node-{i:05d}" for i in range(NUM_NODES)]
+
+
+def gas_template_pod(name: str) -> dict:
+    """The two-container pod of the JAX package's GAS load
+    (``benchmarks/gas_load.make_bodies``): per GPU, c0 asks 250 millicores
+    on 2 cards and c1 1500 on one, over a card's 1000, so it fits no node."""
+    return {
+        "metadata": {"name": name, "namespace": "default", "uid": f"uid-{name}"},
+        "spec": {
+            "containers": [
+                {"name": "c0", "resources": {"requests": {"gpu.intel.com/i915": "2", "gpu.intel.com/millicores": "500"}}},
+                {"name": "c1", "resources": {"requests": {"gpu.intel.com/i915": "1", "gpu.intel.com/millicores": "1500"}}},
+            ]
+        },
+        "status": {"phase": "Pending"},
+    }
+
+
+def gas_single_pod(name: str) -> dict:
+    """One container asking 1 GPU and 250 millicores."""
+    return {
+        "metadata": {"name": name, "namespace": "default", "uid": f"uid-{name}"},
+        "spec": {
+            "containers": [
+                {"name": "c0", "resources": {"requests": {"gpu.intel.com/i915": "1", "gpu.intel.com/millicores": "250"}}}
+            ]
+        },
+        "status": {"phase": "Pending"},
+    }
+
+
+def build_gas_world(np, kube) -> dict:
+    """The JAX package's GAS world at the smoke's node count: 8 cards a
+    node, ``i915: 8``, ``millicores: 8000``, ``memory.max: 64000``; 1% of
+    nodes without the cards label and 1% whose label lost card7 while a
+    bound pod still books it; on the rest, each card booked with
+    probability 0.8 by one bound, annotated pod a node (``i915`` = its
+    cards, the same 250-1000 millicores on each).  Then the burst's pending
+    pods.  Objects go straight into the fake's store, as one list would
+    bring them."""
+    rng = np.random.default_rng(SEED + 7)
+    names = gas_node_names()
+    kinds = rng.random(NUM_NODES)
+    all_cards = [f"card{c}" for c in range(GAS_CARDS)]
+    allocatable = {
+        "gpu.intel.com/i915": str(GAS_CARDS),
+        "gpu.intel.com/millicores": str(1000 * GAS_CARDS),
+        "gpu.intel.com/memory.max": str(8000 * GAS_CARDS),
+    }
+    booked_mc = 0
+    pods = 0
+    counts = {"no_gpu": 0, "vanished": 0}
+    booked_cards = rng.random((NUM_NODES, GAS_CARDS)) < GAS_BOOKED_CARD_SHARE
+    share = rng.choice(GAS_SHARE_MILLICORES, size=NUM_NODES)
+    for i, name in enumerate(names):
+        labels = {"gpu.intel.com/cards": ".".join(all_cards)}
+        cards = [c for c, on in zip(all_cards, booked_cards[i]) if on]
+        if kinds[i] < GAS_NO_GPU_SHARE:
+            labels, cards = {}, []
+            counts["no_gpu"] += 1
+        elif kinds[i] < GAS_NO_GPU_SHARE + GAS_VANISHED_SHARE:
+            labels = {"gpu.intel.com/cards": ".".join(all_cards[:-1])}
+            if all_cards[-1] not in cards:
+                cards.append(all_cards[-1])
+            counts["vanished"] += 1
+        kube.add_node({"metadata": {"name": name, "labels": labels}, "status": {"allocatable": dict(allocatable)}})
+        if not cards:
+            continue
+        m = int(share[i])
+        kube.add_pod({
+            "metadata": {
+                "name": f"booked-{i:05d}",
+                "namespace": "default",
+                "uid": f"uid-booked-{i:05d}",
+                "annotations": {"gas-container-cards": ",".join(cards), "gas-ts": "1"},
+            },
+            "spec": {
+                "nodeName": name,
+                "containers": [{"name": "c0", "resources": {"requests": {
+                    "gpu.intel.com/i915": str(len(cards)), "gpu.intel.com/millicores": str(m * len(cards))}}}],
+            },
+            "status": {"phase": "Running"},
+        })
+        pods += 1
+        booked_mc += m * len([c for c in cards if c in labels.get("gpu.intel.com/cards", "").split(".")])
+    burst = [gas_template_pod(f"gas-burst-{i:03d}") if i % 2 == 0 else gas_single_pod(f"gas-burst-{i:03d}")
+             for i in range(GAS_BURST)]
+    warm = [gas_single_pod(f"gas-warm-{i}") for i in range(2)]
+    for pod in burst + warm:
+        kube.add_pod(pod)
+    gpu_nodes = NUM_NODES - counts["no_gpu"]
+    return {
+        "names": names,
+        "burst": burst,
+        "warm": warm,
+        "booked_pods": pods,
+        "booked_millicores_share": booked_mc / (gpu_nodes * GAS_CARDS * 1000 - counts["vanished"] * 1000),
+        **counts,
+    }
+
+
+def gas_request(mirror, pod_raw: dict, device):
+    """The staged bin-pack request of a pod over the mirror's resources,
+    as ``DeviceBinpacker`` stages it: (request, K)."""
+    from platform_aware_scheduling_tpu_torch.gas import device as gas_device
+    from platform_aware_scheduling_tpu_torch.gas import scheduler as gas_scheduler
+    from platform_aware_scheduling_tpu_torch.gas.utils import container_requests
+    from platform_aware_scheduling_tpu_torch.kube.objects import Pod
+
+    requests = container_requests(Pod(pod_raw))
+    shares = [gas_scheduler.get_per_gpu_resource_request(r) for r in requests]
+    state = mirror.snapshot()[0]
+    return gas_device.stage_request(requests, shares, mirror.resource_index(), state.capacity.shape[-1], device)
+
+
+def gas_parity_cases(torch, np):
+    """(name, state, request, K) on the card, from numpy seeds: int64
+    edges, zero-card nodes, a request equal to the per-card capacity,
+    repeat picks, card order unlike lane order, T=4 K=8, a grown C=16
+    R=8 mirror, and random states near the int64 bounds."""
+    from platform_aware_scheduling_tpu_torch.ops.binpack import BinpackNodeState, BinpackRequest
+
+    rng = np.random.default_rng(SEED + 8)
+
+    def case(name, k, used, capacity, need, cap_present=None, card_valid=None, card_real=None,
+             card_order=None, need_active=None, num_gpus=None, container_active=None):
+        used = np.asarray(used, np.int64)
+        capacity = np.asarray(capacity, np.int64)
+        need = np.asarray(need, np.int64)
+        n, c, r = used.shape
+        t = need.shape[0]
+
+        def put(array, dtype):
+            return torch.from_numpy(np.ascontiguousarray(np.asarray(array, dtype))).cuda()
+
+        state = BinpackNodeState(
+            used=put(used, np.int64),
+            capacity=put(capacity, np.int64),
+            cap_present=put(np.ones((n, r), bool) if cap_present is None else cap_present, bool),
+            card_valid=put(np.ones((n, c), bool) if card_valid is None else card_valid, bool),
+            card_real=put(np.ones((n, c), bool) if card_real is None else card_real, bool),
+            card_order=put(np.broadcast_to(np.arange(c), (n, c)) if card_order is None else card_order, np.int32),
+        )
+        request = BinpackRequest(
+            need=put(need, np.int64),
+            need_active=put(need != 0 if need_active is None else need_active, bool),
+            num_gpus=put(np.ones(t) if num_gpus is None else num_gpus, np.int32),
+            container_active=put(np.ones(t, bool) if container_active is None else container_active, bool),
+        )
+        return name, state, request, k
+
+    def rand(shape, hi):
+        v = rng.integers(0, hi, size=shape, dtype=np.int64)
+        pick = rng.random(shape)
+        v = np.where(pick < 0.06, INT64_MAX - rng.integers(0, 4, size=shape), v)
+        return np.where((pick >= 0.06) & (pick < 0.09), -rng.integers(1, 4, size=shape), v)
+
+    def perms(n, c):
+        return np.stack([rng.permutation(c) for _ in range(n)])
+
+    cases = [
+        case("int64: capacity INT64_MAX, need INT64_MAX", 1, [[[0]]], [[INT64_MAX]], [[INT64_MAX]]),
+        case("int64: used near the maximum", 1, [[[INT64_MAX - 2]], [[INT64_MAX - 1]]], [[INT64_MAX]] * 2, [[2]]),
+        case("int64: an add that overflows", 1, [[[INT64_MAX]], [[2**62]]], [[INT64_MAX]] * 2, [[2**62 + 1]]),
+        case("zero-card nodes", 1, [[[0], [0]]] * 3, [[100]] * 3, [[10]],
+             card_real=[[False, False], [True, True], [True, True]], card_valid=[[True, True], [False, False], [True, False]]),
+        case("request equal to the per-card capacity", 2, [[[0], [0]], [[1], [0]]], [[100]] * 2, [[100]], num_gpus=[2]),
+        case("repeat picks on one card", 4, [[[0], [0]]], [[100]], [[25]], num_gpus=[4]),
+        case("card_order unlike lane order", 3, [[[0]] * 4] * 2, [[100]] * 2, [[60]], num_gpus=[3],
+             card_order=[[3, 1, 1, 0], [2**30 + 1, 0, 2, 1]]),
+        case("T=4, K=8", 8, rng.integers(0, 40, (64, 8, 4)), rng.integers(50, 200, (64, 4)),
+             rng.integers(0, 30, (4, 4)), num_gpus=[8, 3, 0, 5], container_active=[True, True, True, False]),
+        case("mirror grown to C=16, R=8", 4, rng.integers(0, 40, (64, 16, 8)), rng.integers(50, 200, (64, 8)),
+             rng.integers(0, 30, (2, 8)), need_active=rng.random((2, 8)) < 0.6, cap_present=rng.random((64, 8)) < 0.9,
+             card_valid=rng.random((64, 16)) < 0.9, card_real=np.arange(16)[None, :] < rng.integers(1, 17, (64, 1)),
+             card_order=perms(64, 16), num_gpus=[4, 2]),
+    ]
+    for i in range(GAS_RANDOM_PARITY_STATES):
+        n, c, r, t, k = ((256, 4, 4, 2, 2), (256, 8, 4, 2, 4), (256, 4, 2, 4, 2), (256, 40, 4, 2, 2))[i % 4]
+        cases.append(case(
+            f"random {i}", k, rand((n, c, r), 60), rand((n, r), 120), rand((t, r), 50),
+            cap_present=rng.random((n, r)) < 0.9, card_valid=rng.random((n, c)) < 0.9,
+            card_real=rng.random((n, c)) < 0.9,
+            card_order=np.where(rng.random((n, c)) < 0.05, 2**30 + rng.integers(0, 2, (n, c)), perms(n, c)),
+            need_active=rng.random((t, r)) < 0.7, num_gpus=rng.integers(0, k + 1, size=t),
+            container_active=rng.random(t) < 0.9,
+        ))
+    return cases
+
+
+def run_gas_parity(torch, cases) -> int:
+    """The bin-pack kernel against its plain version on the card, exactly,
+    on every case; returns the largest absolute difference (0 when exact).
+    These launches are not the main path's."""
+    from platform_aware_scheduling_tpu_torch.ops.binpack import binpack_reference
+    from platform_aware_scheduling_tpu_torch.ops.cuda_binpack import binpack_cuda
+
+    max_err = 0
+    randoms = 0
+    for name, state, request, k in cases:
+        got = binpack_cuda(state, request, k)
+        want = binpack_reference(state, request, k)
+        torch.cuda.synchronize()
+        for out, ref in zip(got, want):
+            check(out.dtype == ref.dtype and out.shape == ref.shape, f"gas parity {name}: output form")
+            if out.numel():
+                max_err = max(max_err, (out.long() - ref.long()).abs().max().item())
+            check(torch.equal(out, ref), f"gas parity {name}: kernel disagrees with the plain version")
+        if name.startswith("random"):
+            randoms += 1
+        else:
+            print(f"gas parity {name}: exact ({int(got.fits.sum())} of {got.fits.numel()} nodes fit)")
+    print(f"gas parity: {randoms} random states near the int64 bounds exact")
+    return max_err
+
+
+def check_card_limit(torch) -> None:
+    from platform_aware_scheduling_tpu_torch.ops.binpack import BinpackNodeState, BinpackRequest
+    from platform_aware_scheduling_tpu_torch.ops.cuda_binpack import binpack_cuda, max_cards
+
+    n, c, r = 1, max_cards() + 1, 4
+    z = torch.zeros((n, c, r), dtype=torch.int64, device="cuda")
+    state = BinpackNodeState(z, z[:, 0], z[:, 0].bool(), z[..., 0].bool(), z[..., 0].bool(), z[..., 0].int())
+    request = BinpackRequest(z[0, :2], z[0, :2].bool(), z[0, :2, 0].int(), z[0, :2, 0].bool())
+    launches = binpack_cuda.LAUNCHES
+    try:
+        binpack_cuda(state, request, 2)
+    except ValueError:
+        check(binpack_cuda.LAUNCHES == launches, "gas: a refused shape counted a launch")
+        print(f"gas parity: C={c} refused above the kernel's {c - 1}-card limit")
+        return
+    raise SmokeError("C beyond the kernel's card limit was not refused")
+
+
+def time_binpack(torch, state, request, k: int) -> dict:
+    """Kernel and plain-version times on the main path's state, and the
+    least time the card could take: the bytes the function must move (the
+    state's arrays read once, fits and cards written once) over the card's
+    memory rate."""
+    from platform_aware_scheduling_tpu_torch.ops.binpack import binpack_reference
+    from platform_aware_scheduling_tpu_torch.ops.cuda_binpack import binpack_cuda
+
+    n, c, r = state.used.shape
+    t = request.need.shape[0]
+    bytes_needed = sum(x.numel() * x.element_size() for x in (*state, *request)) + n + 4 * n * t * k
+    launches = binpack_cuda.LAUNCHES
+    out = {
+        "shape": [n, c, r, t, k],
+        "ms": cuda_ms(torch, lambda: binpack_cuda(state, request, k), 50),
+        "plain_ms": cuda_ms(torch, lambda: binpack_reference(state, request, k), 5),
+        "bound_ms": bytes_needed / HBM_BYTES_PER_S * 1e3,
+        "bytes": bytes_needed,
+    }
+    binpack_cuda.LAUNCHES = launches  # the timing's launches are not the main path's
+    return out
+
+
+def mirror_row_matches(np, mirror, cache, node: str) -> bool:
+    """Whether the mirror's used row of ``node`` holds the cache's booking."""
+    with mirror._lock:
+        row = mirror._node_index[node]
+        want = np.zeros_like(mirror._used[row])
+        for card, rm in cache.get_node_resource_status(node).items():
+            for name, value in rm.items():
+                want[mirror._card_index[row][card], mirror._res_index[name]] = value
+        return bool(np.array_equal(mirror._used[row], want))
+
+
+GAS_FULL_HOST_EVERY = 50  # a Filter held against the host loop walking every node
+
+
+class RememberedHostLogic:
+    """A control extender's host-loop logic per node (``GASExtender.
+    _run_scheduling_logic``), remembered per (pod request, node) and
+    forgotten for a node whose booking changes.  The control's Filter still
+    runs its own host loop over every candidate, reasons and encoding
+    included; only a node whose verdict cannot have changed is not walked
+    again, which keeps 300 Filters of 10,000 nodes within the smoke's time."""
+
+    def __init__(self, extender):
+        self.inner = extender._run_scheduling_logic
+        extender._run_scheduling_logic = self
+        self.memo = {}
+        self._pod = (None, None)
+
+    def __call__(self, pod, node_name):
+        if self._pod[0] is not pod:
+            self._pod = (pod, json.dumps(pod.containers, sort_keys=True))
+        key = (self._pod[1], node_name)
+        hit = self.memo.get(key)
+        if hit is None:
+            try:
+                hit = (None, self.inner(pod, node_name))
+            except Exception as exc:  # noqa: BLE001 — the verdict is the exception
+                hit = (type(exc), exc.args)  # not the exception: its traceback holds the walk's frames
+            self.memo[key] = hit
+        if hit[0] is None:
+            return hit[1]
+        raise hit[0](*hit[1])
+
+    def forget(self, node_name) -> None:
+        for key in [k for k in self.memo if k[1] == node_name]:
+            del self.memo[key]
+
+
+def run_gas(torch, np, device: str) -> dict:
+    """The GAS extender as ``cmd/gas.main`` wires it: ``assemble`` on
+    ``device`` behind the fault-tolerant client of the default flags,
+    ``build_server`` on 127.0.0.1, over the port's fake API server holding
+    :func:`build_gas_world`.  A burst of pods, the JAX load's two-container
+    template alternating with a 1-GPU pod: each is filtered over all node
+    names on a keep-alive socket, its answer held byte for byte against a
+    CPU-mirror twin and the host loop over the same cache, and, where a
+    node fits, bound to a seeded choice among them, the annotation held
+    against the twin's choice and the booking checked in the mirror.
+    Every Filter must miss the fits cache once and launch the kernel once,
+    and none may take the host path."""
+    import http.client
+    import threading
+
+    from platform_aware_scheduling_tpu_torch.cmd import common, gas
+    from platform_aware_scheduling_tpu_torch.extender.server import HTTPRequest
+    from platform_aware_scheduling_tpu_torch.gas.scheduler import GASExtender
+    from platform_aware_scheduling_tpu_torch.ops.cuda_binpack import binpack_cuda
+    from platform_aware_scheduling_tpu_torch.testing.fake_kube import FakeKubeClient
+    from platform_aware_scheduling_tpu_torch.utils import trace
+    from platform_aware_scheduling_tpu_torch.utils.gctuning import tune_for_serving
+
+    out = {}
+    rng = np.random.default_rng(SEED + 9)
+    # the reference logs each node without GPUs and each vanished card on
+    # every host-loop walk (the control walks 10,000 nodes a Filter): such
+    # lines are counted, not printed
+    expected_lines = ("gpulist label not found from node", "GPUs have vanished", "has vanished")
+    quiet = {"lines": 0}
+
+    def drop_expected(record) -> bool:
+        if any(text in record.getMessage() for text in expected_lines):
+            quiet["lines"] += 1
+            return False
+        return True
+
+    logger = logging.getLogger("pas_tpu_torch")
+    logger.addFilter(drop_expected)
+    start = time.perf_counter()
+    kube = FakeKubeClient()
+    world = build_gas_world(np, kube)
+    out["world"] = {k: v for k, v in world.items() if k not in ("names", "burst", "warm")}
+    out["seed_s"] = time.perf_counter() - start
+    names = world["names"]
+
+    args = gas.build_arg_parser().parse_args(["--unsafe", "--port=0"])
+    policy, breakers = common.build_fault_tolerance(args)
+    api = common.wrap_kube_client(kube, policy, breakers)
+    start = time.perf_counter()
+    cache, ext = gas.assemble(api, retry_policy=policy, device=device)
+    server = None
+    try:
+        # the worker books every bound pod; the cache's own hook says when
+        booked = threading.Event()
+
+        def on_booking(_node):
+            if len(cache.annotated_pods) >= world["booked_pods"]:
+                booked.set()
+
+        cache.on_booking_change(on_booking)
+        on_booking(None)
+        check(booked.wait(120), "gas: the cache did not book every bound pod")
+        out["assemble_s"] = time.perf_counter() - start
+        tune_for_serving()  # as cmd/gas.main does once the lists are in
+        mirror, packer = ext._device.mirror, ext._device
+        check(mirror.device.type == device, f"gas: the mirror is not on {device}")
+        # a vanished card keeps its lane: still 8 a node
+        check(mirror._used.shape[1] == GAS_CARDS, f"gas: mirror shape {mirror._used.shape}")
+        # the controls: a CPU-mirror twin and the host loop over the same
+        # cache, the latter walking every node on the first Filter of each
+        # request and every GAS_FULL_HOST_EVERY-th, and between them only
+        # the nodes whose booking changed
+        twin = GASExtender(api, cache=cache, retry_policy=policy, device="cpu")
+        host = GASExtender(api, cache=cache, retry_policy=policy, use_device=False)
+        host_walked = GASExtender(api, cache=cache, retry_policy=policy, use_device=False)
+        remembered = RememberedHostLogic(host_walked)
+        cache.work_queue.recorder = ext.recorder
+        # the controls are the smoke's, not the service's: their start-up
+        # heap is frozen out of collections too, and the garbage each
+        # control step leaves is collected before the next timed request
+        gc.collect()
+        gc.freeze()
+        server = gas.build_server(ext)
+        server.start_server(port="0", unsafe=True, host="127.0.0.1", block=False)
+        check(server.wait_ready(), "gas: the extender server did not start")
+        conn = http.client.HTTPConnection("127.0.0.1", server.port, timeout=120)
+
+        def send(path, body, request_id=None):
+            headers = {"Content-Type": "application/json"}
+            if request_id is not None:
+                headers["X-Request-ID"] = request_id
+            t0 = time.perf_counter()
+            conn.request("POST", path, body=body, headers=headers)
+            resp = conn.getresponse()
+            data = resp.read()
+            return resp.status, data, time.perf_counter() - t0
+
+        def control(extender, body):
+            return extender.filter(HTTPRequest("POST", "/scheduler/filter", {"Content-Type": "application/json"}, body))
+
+        def settled(name, node):
+            """The Bind's updates have reached the cache's pod informer and
+            its worker, as they would before the scheduler's next pod."""
+            wait_for(
+                lambda: cache.fetch_pod("default", name).spec_node_name == node and len(cache.work_queue) == 0,
+                30, f"gas: {name}'s bind to reach the cache",
+            )
+
+        # warm-up, not counted: each kind of Filter and a Bind after which
+        # the next Filter rebuilds the mirror's device state from a dirty row
+        template = json.dumps({"Pod": world["burst"][0], "NodeNames": names}).encode()
+        for pod in world["warm"]:
+            check(send("/scheduler/filter", template)[0] == 200, "gas: warm-up Filter failed")
+            body = json.dumps({"Pod": pod, "NodeNames": names}).encode()
+            status, data, _s = send("/scheduler/filter", body)
+            check(status == 200 and json.loads(data)["NodeNames"], "gas: warm-up Filter failed")
+            name, node = pod["metadata"]["name"], json.loads(data)["NodeNames"][0]
+            binding = {"PodName": name, "PodNamespace": "default", "PodUID": pod["metadata"]["uid"], "Node": node}
+            check(send("/scheduler/bind", json.dumps(binding).encode())[0] == 200, "gas: warm-up Bind failed")
+            settled(name, node)
+        gc.collect()
+        status, data = http_get(server.port, "/readyz")
+        check(status == 200, f"gas: /readyz answered {status}: {data[:200]!r}")
+
+        # the server's spans as they complete, matched by X-Request-ID, and
+        # the device path's own parts: the bin-pack call and in it the
+        # mirror's snapshot
+        spans, parts = [], {"batch_fit": [], "snapshot": []}
+
+        def timed(label, fn):
+            def wrapper(*a, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    parts[label].append((time.perf_counter() - t0) * 1e3)
+
+            return wrapper
+
+        packer.batch_fit = timed("batch_fit", packer.batch_fit)
+        mirror.snapshot = timed("snapshot", mirror.snapshot)
+        trace.SPAN_OBSERVERS.append(spans.append)
+        binpack_cuda.LAUNCHES = 0
+        hits0, misses0 = packer.fits_hits, packer.fits_misses
+        device_host = 0
+        filter_ms, bind_ms, failed_counts, bound = [], [], [], 0
+        t_burst = time.perf_counter()
+        full_host = 0
+        for i, pod in enumerate(world["burst"]):
+            body = json.dumps({"Pod": pod, "NodeNames": names}).encode()
+            before = trace.COUNTERS.get("pas_gas_filter_host_total")
+            status, data, seconds = send("/scheduler/filter", body, request_id=f"gas-filter-{i}")
+            device_host += trace.COUNTERS.get("pas_gas_filter_host_total") - before
+            check(status == 200, f"gas: Filter answered {status}")
+            filter_ms.append(seconds * 1e3)
+            check(control(twin, body).body == data, f"gas: {pod['metadata']['name']}: Filter differs from the CPU twin")
+            check(control(host_walked, body).body == data,
+                  f"gas: {pod['metadata']['name']}: Filter differs from the host loop")
+            if i % GAS_FULL_HOST_EVERY == 0 or i == GAS_BURST - 1:
+                check(control(host, body).body == data,
+                      f"gas: {pod['metadata']['name']}: Filter differs from the host loop over every node")
+                full_host += 1
+            result = json.loads(data)
+            fitting = result["NodeNames"] or []
+            failed_counts.append(len(result["FailedNodes"]))
+            node = name = want = None
+            if fitting:
+                node = fitting[int(rng.integers(len(fitting)))]
+                name = pod["metadata"]["name"]
+                want = twin._run_scheduling_logic(cache.fetch_pod("default", name), node)
+            del result, data
+            gc.collect()
+            if node is None:
+                continue
+            version = mirror.version
+            binding = {"PodName": name, "PodNamespace": "default", "PodUID": pod["metadata"]["uid"], "Node": node}
+            status, data, seconds = send("/scheduler/bind", json.dumps(binding).encode())
+            check((status, data) == (200, b'{"Error": ""}\n'), f"gas: Bind answered {status} {data[:200]!r}")
+            bind_ms.append(seconds * 1e3)
+            got = kube.get_pod("default", name).get_annotations().get("gas-container-cards")
+            check(got == want, f"gas: {name} annotated {got!r}, the twin chose {want!r}")
+            check(mirror.version > version and mirror_row_matches(np, mirror, cache, node),
+                  f"gas: {name}'s booking did not reach the mirror")
+            check(mirror_row_matches(np, twin._device.mirror, cache, node), f"gas: {name}'s booking missed the twin")
+            remembered.forget(node)
+            settled(name, node)
+            bound += 1
+        out["burst_s"] = time.perf_counter() - t_burst
+        out["full_host_filters"] = full_host
+        del packer.batch_fit, mirror.snapshot
+        deadline = time.perf_counter() + 5.0
+        while len({sp.trace_id for sp in spans if sp.trace_id.startswith("gas-filter-")}) < GAS_BURST:
+            check(time.perf_counter() < deadline, "gas: Filter spans missing")
+            time.sleep(0.01)  # the last span is added after its response is sent
+        trace.SPAN_OBSERVERS.remove(spans.append)
+        by_id = {sp.trace_id: sp for sp in spans}
+        check(all(by_id[f"gas-filter-{i}"].attrs.get("path") == "device" for i in range(GAS_BURST)),
+              "gas: a timed Filter span is not on the device path")
+        # stage medians by kind (even: the template, odd: the 1-GPU pod)
+        out["stages"] = {}
+        for kind, first in (("template", 0), ("1-GPU", 1)):
+            ids = range(first, GAS_BURST, 2)
+            per = {}
+            for i in ids:
+                for stage, sec in by_id[f"gas-filter-{i}"].stage_seconds().items():
+                    per.setdefault(stage, []).append(sec * 1e3)
+            per["client"] = [filter_ms[i] for i in ids]
+            per["outside the server span"] = [filter_ms[i] - by_id[f"gas-filter-{i}"].duration_s * 1e3 for i in ids]
+            per["batch_fit"] = parts["batch_fit"][first::2]
+            per["snapshot"] = parts["snapshot"][first::2]
+            out["stages"][kind] = {stage: statistics.median(ms) for stage, ms in per.items()}
+        slowest = sorted(range(GAS_BURST), key=filter_ms.__getitem__)[-3:][::-1]
+        out["tail"] = [
+            (i, filter_ms[i], {k: v * 1e3 for k, v in by_id[f"gas-filter-{i}"].stage_seconds().items()},
+             parts["batch_fit"][i])
+            for i in slowest
+        ]
+        out["launches"] = binpack_cuda.LAUNCHES
+        out["hits"] = packer.fits_hits - hits0
+        out["misses"] = packer.fits_misses - misses0
+        out["device_host_filters"] = device_host
+        check(device_host == 0, f"gas: {device_host} Filters took the host path")
+        if device == "cuda":
+            check(out["launches"] > 0 and out["launches"] == out["misses"],
+                  f"gas: {out['launches']} binpack launches for {out['misses']} fits-cache misses")
+        check(out["hits"] + out["misses"] == GAS_BURST, "gas: a Filter skipped the fits cache")
+        check(bound > 0, "gas: no pod was bound")
+        out["bound"] = bound
+        out["failed_nodes"] = (min(failed_counts), max(failed_counts))
+        out["filter"] = {"p50_ms": statistics.median(filter_ms), "p99_ms": percentile(filter_ms, 0.99),
+                         "max_ms": max(filter_ms), "n": len(filter_ms)}
+        out["bind"] = {"p50_ms": statistics.median(bind_ms), "p99_ms": percentile(bind_ms, 0.99),
+                       "max_ms": max(bind_ms), "n": len(bind_ms)}
+        conn.close()
+
+        # the kernel on the main path's state: held against its plain
+        # version, then timed
+        state = mirror.snapshot()[0]
+        main_cases = []
+        for pod in world["burst"][:2]:
+            request, k = gas_request(mirror, pod, mirror.device)
+            main_cases.append((f"main path, {pod['metadata']['name']}", state, request, k))
+        if device == "cuda":
+            launches = binpack_cuda.LAUNCHES
+            out["max_abs_err"] = run_gas_parity(torch, main_cases)
+            binpack_cuda.LAUNCHES = launches
+            out["times"] = time_binpack(torch, *main_cases[0][1:])
+    finally:
+        if server is not None:
+            server.shutdown()
+        cache.stop()
+        for hub in kube._hubs.values():
+            hub.publish("BOOKMARK", {})  # an idle watch returns to see its stop
+        logger.removeFilter(drop_expected)
+    out["expected_log_lines"] = quiet["lines"]
+    return out
+
+
+def gas_lines(g: dict, card: str) -> list:
+    w, f, b = g["world"], g["filter"], g["bind"]
+    lines = [
+        f"gas world: {NUM_NODES} nodes x {GAS_CARDS} cards, {w['no_gpu']} without GPUs, {w['vanished']} with a "
+        f"vanished card, {w['booked_pods']} bound pods booking {w['booked_millicores_share']:.3f} of the "
+        f"millicores; seeded in {g['seed_s']:.3f} s, assembled and booked in {g['assemble_s']:.3f} s",
+        f"gas burst: {GAS_BURST} pods, {g['bound']} bound; FailedNodes {g['failed_nodes'][0]}-{g['failed_nodes'][1]} "
+        f"a Filter; every Filter equal to the CPU twin and the host loop ({g['full_host_filters']} walking every "
+        f"node, the rest the nodes a Bind changed); binpack launches {g['launches']} = "
+        f"fits-cache misses {g['misses']} (hits {g['hits']}); device Filters on the host path "
+        f"{g['device_host_filters']}; {g['burst_s']:.3f} s ({g['expected_log_lines']} expected log lines of "
+        f"GPU-less nodes and vanished cards not printed)",
+        f"gas verbs {NUM_NODES} nodes over a socket: filter p50 {f['p50_ms']:.3f} ms p99 {f['p99_ms']:.3f} ms "
+        f"max {f['max_ms']:.3f} ms (n={f['n']}), bind p50 {b['p50_ms']:.3f} ms p99 {b['p99_ms']:.3f} ms "
+        f"max {b['max_ms']:.3f} ms (n={b['n']}) [{card}]",
+    ]
+    for kind, st in g["stages"].items():
+        lines.append(
+            f"gas filter stages, {kind} pods (medians, ms): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in st.items())
+            + f" [{card}]"
+        )
+    lines.append(
+        "gas filter tail (the 3 slowest): "
+        + "; ".join(
+            f"#{i} client {ms:.3f} ms (" + ", ".join(f"{k} {v:.3f}" for k, v in st.items())
+            + f", batch_fit {bf:.3f})"
+            for i, ms, st, bf in g["tail"]
+        )
+        + f" [{card}]"
+    )
+    if "times" in g:
+        t = g["times"]
+        n, c, r, tt, k = t["shape"]
+        lines.append(
+            f"binpack main path {n}x{c}x{r}, T={tt} K={k}: kernel {t['ms']:.4f} ms, plain PyTorch "
+            f"{t['plain_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms ({t['bytes']} bytes); no single PyTorch "
+            f"call computes this function [{card}]"
+        )
+    return lines
+
+
+def check_gas_limits(g: dict) -> None:
+    check(g["filter"]["p99_ms"] <= VERB_P99_LIMIT_MS,
+          f"gas: Filter p99 {g['filter']['p99_ms']:.3f} ms over {VERB_P99_LIMIT_MS} ms")
+
+
 def main() -> int:
     if not (ROOT / PACKAGE / "__init__.py").is_file():
         print(f"chip_smoke: {PACKAGE}/ is not beside this script", file=sys.stderr)
@@ -2233,6 +2866,8 @@ def main() -> int:
     cases = parity_cases(torch, np, limit, cuda_assign.list_size())
     max_err = run_parity(torch, cases)
     check_node_limit(torch, limit)
+    gas_max_err = run_gas_parity(torch, gas_parity_cases(torch, np))
+    check_card_limit(torch)
 
     kernel = cuda_assign.greedy_assign_cuda
     launches = []
@@ -2314,6 +2949,14 @@ def main() -> int:
         f"{ENFORCE_CYCLE_LIMIT_S * 1e3:.0f} ms, failover <= {LEASE_DURATION_S + LEASE_RENEW_S + SERVICE_SYNC_PERIOD_S:.0f} s"
     )
 
+    gas_out = run_gas(torch, np, "cuda")
+    for line in gas_lines(gas_out, card):
+        print(line)
+    check_gas_limits(gas_out)
+    gas_max_err = max(gas_max_err, gas_out["max_abs_err"])
+    print(f"limits met: GAS Filter p99 <= {VERB_P99_LIMIT_MS} ms")
+
+    gas_times = gas_out["times"]
     kernels = [
         {
             "name": "greedy_assign",
@@ -2335,7 +2978,24 @@ def main() -> int:
             "verbs_launches": verbs["launches"],
             "service_launches": service["launches"],
             "faults_launches": service["faults"]["launches"],
-        }
+        },
+        {
+            "name": "binpack",
+            "route": "cuda",
+            "source": f"{PACKAGE}/csrc/binpack.cu",
+            "replaces": "platform_aware_scheduling_tpu/ops/binpack.py:157",
+            "launches": gas_out["launches"],
+            "max_abs_err": gas_max_err,
+            "ms": gas_times["ms"],
+            "plain_ms": gas_times["plain_ms"],
+            "bound_ms": gas_times["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": None,
+            "parity": True,
+            "shape": gas_times["shape"],
+            "fits_cache_misses": gas_out["misses"],
+            "fits_cache_hits": gas_out["hits"],
+        },
     ]
     print(json.dumps({"kernels": kernels}))
     print(

@@ -1,11 +1,12 @@
-"""Flags and start-up helpers of the service main.
+"""Flags and start-up helpers of the service mains.
 
 The port's copy of the parts of ``platform_aware_scheduling_tpu/cmd/
-common.py`` that ``cmd/tas.py`` uses: the robustness flags (retry, backoff,
-circuit breaking and ``--degradedMode``), the leader-election flags, the
-decision-log and event-journal flags, the fault-tolerant proxy put in
-front of the kube client, and the lease elector built over it.  The JAX
-HA flags' gang journal (``--gangJournal*``) comes with the gang plane.
+common.py`` that ``cmd/tas.py`` and ``cmd/gas.py`` use: the robustness
+flags (retry, backoff, circuit breaking and, for TAS, ``--degradedMode``),
+the leader-election flags, the decision-log and event-journal flags, the
+fault-tolerant proxy put in front of the kube client, and the lease
+elector built over it.  The JAX HA flags' gang journal
+(``--gangJournal*``) comes with the gang plane.
 """
 
 from __future__ import annotations
@@ -25,8 +26,10 @@ from platform_aware_scheduling_tpu_torch.utils import decisions, events
 from platform_aware_scheduling_tpu_torch.utils.duration import parse_duration
 
 
-def add_robustness_flags(parser: argparse.ArgumentParser) -> None:
-    """Retry/backoff and circuit-breaker tuning."""
+def add_robustness_flags(parser: argparse.ArgumentParser, degraded: bool = True) -> None:
+    """Retry/backoff and circuit-breaker tuning.  ``--degradedMode`` only
+    exists where a DegradedModeController is built (TAS): GAS would ignore
+    it, so ``degraded=False`` leaves it out and argparse refuses it."""
     parser.add_argument("--retryMaxAttempts", type=int, default=4,
                         help="max attempts per idempotent API read "
                         "(writes never blind-retry)")
@@ -44,14 +47,15 @@ def add_robustness_flags(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--circuitResetTimeout", default="30s",
                         help="how long an open circuit waits before the "
                         "half-open probe (Go duration)")
-    parser.add_argument("--degradedMode", default="last-known-good",
-                        choices=["fail-open", "fail-closed", "last-known-good"],
-                        help="dontschedule Filter policy while telemetry "
-                        "is degraded: fail-open passes every candidate, "
-                        "fail-closed passes none, last-known-good keeps "
-                        "serving retained values within a bounded age "
-                        "then fails open.  Evictions are ALWAYS "
-                        "suspended while degraded (not configurable)")
+    if degraded:
+        parser.add_argument("--degradedMode", default="last-known-good",
+                            choices=["fail-open", "fail-closed", "last-known-good"],
+                            help="dontschedule Filter policy while telemetry "
+                            "is degraded: fail-open passes every candidate, "
+                            "fail-closed passes none, last-known-good keeps "
+                            "serving retained values within a bounded age "
+                            "then fails open.  Evictions are ALWAYS "
+                            "suspended while degraded (not configurable)")
 
 
 def add_ha_flags(parser: argparse.ArgumentParser) -> None:

@@ -3,8 +3,8 @@
 The system's "weights" are its cluster state.  The JAX package holds
 int64 as the ``(hi: int32, lo: uint32)`` split of its ``ops/i64.py``;
 these functions take those arrays as numpy arrays, join every int64
-exactly, and build the port's ``ClusterState`` / ``PendingPods`` on
-``device``.
+exactly, and build the port's ``ClusterState`` / ``PendingPods`` and GAS
+``BinpackNodeState`` / ``BinpackRequest`` on ``device``.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ from platform_aware_scheduling_tpu_torch.models.batch_scheduler import (
     ClusterState,
     PendingPods,
 )
+from platform_aware_scheduling_tpu_torch.ops.binpack import BinpackNodeState, BinpackRequest
 from platform_aware_scheduling_tpu_torch.ops.i64 import join_int64
 from platform_aware_scheduling_tpu_torch.ops.rules import RuleSet
 from platform_aware_scheduling_tpu_torch.utils.device import DeviceLike, resolve_device
@@ -63,4 +64,45 @@ def pending_pods_from_numpy(
         metric_row=_put(metric_row, np.int32, device),
         op_id=_put(op_id, np.int32, device),
         candidates=_put(candidates, bool, device),
+    )
+
+
+def binpack_state_from_numpy(
+    used_hi,  # int32 [N, C, R]
+    used_lo,  # uint32 [N, C, R]
+    capacity_hi,  # int32 [N, R]
+    capacity_lo,  # uint32 [N, R]
+    cap_present,  # bool [N, R]
+    card_valid,  # bool [N, C]
+    card_real,  # bool [N, C]
+    card_order,  # int32 [N, C]
+    device: DeviceLike = None,
+) -> BinpackNodeState:
+    """A JAX ``BinpackNodeState`` (split int64) as the port's."""
+    device = resolve_device(device)
+    return BinpackNodeState(
+        used=_put(join_int64(used_hi, used_lo), np.int64, device),
+        capacity=_put(join_int64(capacity_hi, capacity_lo), np.int64, device),
+        cap_present=_put(cap_present, bool, device),
+        card_valid=_put(card_valid, bool, device),
+        card_real=_put(card_real, bool, device),
+        card_order=_put(card_order, np.int32, device),
+    )
+
+
+def binpack_request_from_numpy(
+    need_hi,  # int32 [T, R]
+    need_lo,  # uint32 [T, R]
+    need_active,  # bool [T, R]
+    num_gpus,  # int32 [T]
+    container_active,  # bool [T]
+    device: DeviceLike = None,
+) -> BinpackRequest:
+    """A JAX ``BinpackRequest`` (split int64) as the port's."""
+    device = resolve_device(device)
+    return BinpackRequest(
+        need=_put(join_int64(need_hi, need_lo), np.int64, device),
+        need_active=_put(need_active, bool, device),
+        num_gpus=_put(num_gpus, np.int32, device),
+        container_active=_put(container_active, bool, device),
     )

@@ -1,0 +1,375 @@
+"""GAS cluster cache: an informer and work-queue pipeline keeping per-node,
+per-card used resources.
+
+The port's copy of ``platform_aware_scheduling_tpu/gas/cache.py``.
+Reference: gpu-aware-scheduling/pkg/gpuscheduler/node_resource_cache.go.
+State: ``annotated_pods`` (pod key -> card annotation) and ``node_statuses``
+(node -> card -> ResourceMap) (:56-68).  Pod informer events are filtered to
+GPU-requesting pods (:146-158) and enqueued as actions (:305-400); a single
+worker drains the queue into ``handle_pod`` (:403-449, 493-538) which books
+or releases per-card usage via the transactional ``adjust_pod_resources``
+(:236-287).  Reads hand out deep copies (:474-491).
+
+All durable state derives from pod annotations observed through the
+informer, so a restarted cache rebuilds itself from the API server.
+
+Divergence from the reference, on purpose: on podDeleted the stored
+annotation is used for the resource release.  The reference passes the
+queue item's annotation, which is empty for delete events
+(node_resource_cache.go:393-398 builds the item without it, :512 uses it),
+so deletions of still-running annotated pods leaked their booking.
+"""
+
+from __future__ import annotations
+
+import threading
+from enum import Enum
+from typing import Dict, Optional
+
+from platform_aware_scheduling_tpu_torch.gas.resource_map import (
+    NodeResources,
+    ResourceMap,
+    ResourceMapError,
+)
+from platform_aware_scheduling_tpu_torch.gas.utils import (
+    CARD_ANNOTATION,
+    container_requests,
+    has_gpu_resources,
+    is_completed_pod,
+)
+from platform_aware_scheduling_tpu_torch.kube.informer import (
+    DeletedFinalStateUnknown,
+    Informer,
+    ListWatch,
+)
+from platform_aware_scheduling_tpu_torch.kube.objects import Node, Pod, object_key
+from platform_aware_scheduling_tpu_torch.kube.workqueue import WorkQueue
+from platform_aware_scheduling_tpu_torch.utils import klog
+
+ADD = True
+REMOVE = False
+WORKER_WAIT_S = 0.1  # node_resource_cache.go:28
+INFORMER_INTERVAL_S = 30.0  # node_resource_cache.go:29
+
+
+class PodAction(Enum):
+    UPDATED = 0
+    ADDED = 1
+    DELETED = 2
+    COMPLETED = 3
+
+
+class WorkQueueItem:
+    __slots__ = ("name", "ns", "annotation", "action", "pod")
+
+    def __init__(self, name, ns, annotation, action, pod):
+        self.name = name
+        self.ns = ns
+        self.annotation = annotation
+        self.action = action
+        self.pod = pod
+
+    def __hash__(self):  # identity: items are enqueued once each
+        return id(self)
+
+    def __eq__(self, other):
+        return self is other
+
+
+class BadArgsError(ValueError):
+    """bad args (reference node_resource_cache.go:41)"""
+
+
+def get_key(pod: Pod) -> str:
+    """namespace&name (node_resource_cache.go:451-453)."""
+    return f"{pod.namespace}&{pod.name}"
+
+
+class Cache:
+    """All things cached: node/pod listers plus per-card usage accounting
+    (reference node_resource_cache.go:49-68)."""
+
+    def __init__(
+        self,
+        kube_client,
+        resync_period_s: float = INFORMER_INTERVAL_S,
+        start: bool = True,
+    ):
+        self.kube_client = kube_client
+        self.work_queue = WorkQueue(name="gas_pods")
+        self.annotated_pods: Dict[str, str] = {}
+        self.node_statuses: Dict[str, NodeResources] = {}
+        self._rwmutex = threading.RLock()
+        self._stop = threading.Event()
+        self._mutation_hooks = []  # fired after booking changes (device mirror)
+
+        self._node_hooks = []  # fired on node add/update/delete (device mirror)
+        self._node_informer = Informer(
+            ListWatch(
+                lambda: (kube_client.list_nodes(), ""),
+                lambda rv: (
+                    (etype, Node(raw)) for etype, raw in kube_client.watch_nodes()
+                ),
+                lambda node: node.name,
+            ),
+            on_add=self._node_event,
+            on_update=lambda _old, new: self._node_event(new),
+            on_delete=self._node_deleted,
+            resync_period=resync_period_s,
+            name="gas_nodes",
+        )
+        self._pod_informer = Informer(
+            ListWatch(
+                lambda: (kube_client.list_pods(), ""),
+                lambda rv: (
+                    (etype, Pod(raw)) for etype, raw in kube_client.watch_pods()
+                ),
+                object_key,
+            ),
+            on_add=self._add_pod_to_cache,
+            on_update=self._update_pod_in_cache,
+            on_delete=self._delete_pod_from_cache,
+            filter_func=self._filter,
+            resync_period=resync_period_s,
+            name="gas_pods",
+        )
+        self._worker: Optional[threading.Thread] = None
+        if start:
+            self.start()
+
+    # -- lifecycle -------------------------------------------------------------
+
+    def start(self) -> None:
+        self._node_informer.start()
+        self._pod_informer.start()
+        self._node_informer.wait_for_cache_sync()
+        self._pod_informer.wait_for_cache_sync()
+        self._worker = threading.Thread(target=self._worker_run, daemon=True)
+        self._worker.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        self.work_queue.shut_down()
+        self._node_informer.stop()
+        self._pod_informer.stop()
+
+    def synced_condition(self):
+        """The /readyz condition: both informers delivered their initial
+        list (utils/health.py)."""
+        pending = [
+            name
+            for name, informer in (
+                ("nodes", self._node_informer),
+                ("pods", self._pod_informer),
+            )
+            if not informer.has_synced()
+        ]
+        if pending:
+            return False, f"informers not yet synced: {pending}"
+        return True, "node + pod informers synced"
+
+    # -- node events (device-mirror feed) --------------------------------------
+
+    def _node_event(self, node: Node) -> None:
+        for hook in self._node_hooks:
+            hook(node)
+
+    def _node_deleted(self, obj) -> None:
+        if isinstance(obj, DeletedFinalStateUnknown):
+            obj = obj.obj
+        for hook in self._node_hooks:
+            hook(obj, deleted=True)
+
+    def on_node_change(self, hook) -> None:
+        """Register node add/update/delete callback ``hook(node,
+        deleted=False)``; replays the currently-cached nodes so a
+        late-attaching subscriber starts complete.  Registration + replay
+        run serialized against the informer's dispatch, so the replay can
+        neither miss a concurrent event nor resurrect a node whose delete
+        was already delivered."""
+
+        def register_and_replay():
+            self._node_hooks.append(hook)
+            for node in self._node_informer.list():
+                hook(node)
+
+        self._node_informer.serialized(register_and_replay)
+
+    # -- event plumbing (node_resource_cache.go:146-158, 305-400) --------------
+
+    def _filter(self, obj) -> bool:
+        if isinstance(obj, DeletedFinalStateUnknown):
+            obj = obj.obj
+        if not isinstance(obj, Pod):
+            return False
+        return has_gpu_resources(obj)
+
+    def _add_pod_to_cache(self, pod: Pod) -> None:
+        annotation = pod.get_annotations().get(CARD_ANNOTATION)
+        if annotation is None:
+            return  # must wait for the annotating update (:313-317)
+        self.work_queue.add(
+            WorkQueueItem(pod.name, pod.namespace, annotation, PodAction.ADDED, pod)
+        )
+
+    def _update_pod_in_cache(self, _old, new: Pod) -> None:
+        annotation = new.get_annotations().get(CARD_ANNOTATION)
+        if annotation is None:
+            return
+        action = PodAction.COMPLETED if is_completed_pod(new) else PodAction.UPDATED
+        self.work_queue.add(
+            WorkQueueItem(new.name, new.namespace, annotation, action, new)
+        )
+
+    def _delete_pod_from_cache(self, obj) -> None:
+        if isinstance(obj, DeletedFinalStateUnknown):
+            obj = obj.obj
+        if not isinstance(obj, Pod):
+            klog.warning("cannot convert to Pod: %r", obj)
+            return
+        with self._rwmutex:
+            annotated = get_key(obj) in self.annotated_pods
+        if not annotated:
+            return
+        self.work_queue.add(
+            WorkQueueItem(obj.name, obj.namespace, "", PodAction.DELETED, obj)
+        )
+
+    # -- worker (node_resource_cache.go:403-449) --------------------------------
+
+    def _worker_run(self) -> None:
+        while not self._stop.is_set():
+            item, quit_ = self.work_queue.get(timeout=WORKER_WAIT_S)
+            if quit_:
+                return
+            if item is None:
+                continue
+            try:
+                self._handle_pod(item)
+            except Exception as exc:
+                klog.error(
+                    "error handling pod %s ns %s: %s", item.name, item.ns, exc
+                )
+            finally:
+                self.work_queue.done(item)
+                self.work_queue.forget(item)
+
+    def _handle_pod(self, item: WorkQueueItem) -> None:
+        """Book/release one pod's card usage (node_resource_cache.go:493-538)."""
+        with self._rwmutex:
+            key = get_key(item.pod)
+            if item.action in (PodAction.COMPLETED, PodAction.DELETED):
+                stored = self.annotated_pods.get(key)
+                if stored is not None:
+                    annotation = item.annotation or stored
+                    self.adjust_pod_resources(
+                        item.pod, REMOVE, annotation, item.pod.spec_node_name
+                    )
+            elif item.action in (PodAction.ADDED, PodAction.UPDATED):
+                if key not in self.annotated_pods:
+                    self.adjust_pod_resources(
+                        item.pod, ADD, item.annotation, item.pod.spec_node_name
+                    )
+            else:
+                raise ValueError("unknown action")
+
+    # -- bookkeeping (node_resource_cache.go:160-287) ----------------------------
+
+    def adjust_pod_resources_locked(
+        self, pod: Pod, adj: bool, annotation: str, node_name: str
+    ) -> None:
+        """Public entry taking the lock (adjustPodResourcesL, :162-171)."""
+        with self._rwmutex:
+            self.adjust_pod_resources(pod, adj, annotation, node_name)
+
+    def _new_copy_node_status(self, node_name: str) -> NodeResources:
+        return {
+            card: rm.new_copy()
+            for card, rm in self.node_statuses.get(node_name, {}).items()
+        }
+
+    def _check_pod_resource_adjustment(
+        self, requests, node_name: str, container_cards, adj: bool
+    ) -> None:
+        """Dry-run the arithmetic on a scratch copy; raise if any step would
+        fail so the real pass is all-or-nothing (:190-232)."""
+        if len(requests) != len(container_cards) or not node_name:
+            klog.error(
+                "bad args, node %s pod creqs %s ccards %s",
+                node_name,
+                requests,
+                container_cards,
+            )
+            raise BadArgsError("bad args")
+        scratch = self._new_copy_node_status(node_name)
+        for request, cards_csv in zip(requests, container_cards):
+            card_names = cards_csv.split(",")
+            if card_names and cards_csv:
+                per_card = request.new_copy()
+                per_card.divide(len(card_names))
+                for card in card_names:
+                    rm = scratch.setdefault(card, ResourceMap())
+                    if adj:
+                        rm.add_rm(per_card)
+                    else:
+                        rm.subtract_rm(per_card)
+
+    def adjust_pod_resources(
+        self, pod: Pod, adj: bool, annotation: str, node_name: str
+    ) -> None:
+        """Transactional booking under the held lock (:236-287)."""
+        requests = container_requests(pod)
+        container_cards = annotation.split("|")
+        self._check_pod_resource_adjustment(
+            requests, node_name, container_cards, adj
+        )
+        for request, cards_csv in zip(requests, container_cards):
+            card_names = cards_csv.split(",")
+            if card_names and cards_csv:
+                request.divide(len(card_names))
+                node_res = self.node_statuses.setdefault(node_name, {})
+                for card in card_names:
+                    rm = node_res.setdefault(card, ResourceMap())
+                    if adj:
+                        rm.add_rm(request)
+                    else:
+                        rm.subtract_rm(request)
+        if adj:
+            self.annotated_pods[get_key(pod)] = annotation
+        else:
+            self.annotated_pods.pop(get_key(pod), None)
+        for hook in self._mutation_hooks:
+            hook(node_name)
+
+    # -- reads (node_resource_cache.go:455-491) ----------------------------------
+
+    def fetch_node(self, node_name: str) -> Node:
+        node = self._node_informer.get(node_name)
+        if node is None:
+            raise KeyError(f"node {node_name} not found")
+        return node
+
+    def fetch_pod(self, namespace: str, name: str) -> Pod:
+        pod = self._pod_informer.get(f"{namespace}&{name}")
+        if pod is None:
+            raise KeyError(f"pod {namespace}/{name} not found")
+        return pod.deep_copy()
+
+    def get_node_resource_status(self, node_name: str) -> NodeResources:
+        """Deep copy of the per-card usage for one node (:474-491)."""
+        with self._rwmutex:
+            return self._new_copy_node_status(node_name)
+
+    def on_booking_change(self, hook) -> None:
+        """Register a callback fired (with the node name, lock held) after a
+        successful booking change — feeds the device usage mirror.
+
+        Replay of already-booked nodes and registration happen under one
+        ``_rwmutex`` hold: hooks always run in cache-lock → subscriber-lock
+        order (both here and from ``adjust_pod_resources``), so a subscriber
+        taking its own lock inside the hook cannot deadlock against the
+        worker, and no booking between replay and registration is missed."""
+        with self._rwmutex:
+            for node_name in self.node_statuses:
+                hook(node_name)
+            self._mutation_hooks.append(hook)

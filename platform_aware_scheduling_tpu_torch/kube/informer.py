@@ -1,7 +1,7 @@
 """List-watch informers with client-go replay and resync semantics.
 
 The port's copy of ``platform_aware_scheduling_tpu/kube/informer.py``.
-TAS watches the TASPolicy CRD through one, and the batch planner watches
+TAS watches the TASPolicy CRD through one, the batch planner and GAS watch
 pods and nodes.  The semantics:
 
   * the initial list delivers ADDED for every object, then the watch
@@ -58,12 +58,14 @@ class Informer:
         on_add: Optional[Callable[[Any], None]] = None,
         on_update: Optional[Callable[[Any, Any], None]] = None,
         on_delete: Optional[Callable[[Any], None]] = None,
+        filter_func: Optional[Callable[[Any], bool]] = None,
         resync_period: float = 0.0,
         name: str = "",
         counters: Optional[CounterSet] = None,
         relist_backoff_base_s: float = 0.2,
         relist_backoff_max_s: float = 30.0,
         clock: Callable[[], float] = time.monotonic,
+        stop: Optional[threading.Event] = None,
     ):
         """A NAMED informer exports its health: the
         ``pas_informer_relists_total`` and ``pas_informer_watch_errors_total``
@@ -74,7 +76,11 @@ class Informer:
         Consecutive watch failures back off between relists with capped
         exponential delays and deterministic jitter (``kube.retry.
         backoff_delay``, seeded off the name).  A watch that delivered at
-        least one event resets the streak."""
+        least one event resets the streak.  ``filter_func``, when given,
+        gates every handler call (GAS sees only GPU-requesting pods).
+        ``stop``, when given, is the event the informer stops on (a
+        service's own), so it sees the service stop at once; otherwise it
+        stops on :meth:`stop`."""
         self._lw = list_watch
         self._clock = clock
         self.name = name
@@ -89,6 +95,7 @@ class Informer:
         self._on_add = on_add or (lambda obj: None)
         self._on_update = on_update or (lambda old, new: None)
         self._on_delete = on_delete or (lambda obj: None)
+        self._filter = filter_func
         self._resync_period = resync_period
         self._store: Dict[str, Any] = {}
         self._store_lock = threading.RLock()
@@ -97,7 +104,7 @@ class Informer:
         # deleted state in subscribers)
         self._dispatch_lock = threading.Lock()
         self._synced = threading.Event()
-        self._stop = threading.Event()
+        self._stop = stop if stop is not None else threading.Event()
         self._thread: Optional[threading.Thread] = None
         self._resync_thread: Optional[threading.Thread] = None
         self._resource_version = ""
@@ -140,17 +147,23 @@ class Informer:
 
     # -- event plumbing ------------------------------------------------------
 
+    def _passes(self, obj: Any) -> bool:
+        return self._filter is None or bool(self._filter(obj))
+
     def _dispatch_add(self, obj: Any) -> None:
         with self._dispatch_lock:
-            self._on_add(obj)
+            if self._passes(obj):
+                self._on_add(obj)
 
     def _dispatch_update(self, old: Any, new: Any) -> None:
         with self._dispatch_lock:
-            self._on_update(old, new)
+            if self._passes(new):
+                self._on_update(old, new)
 
     def _dispatch_delete(self, obj: Any) -> None:
         with self._dispatch_lock:
-            self._on_delete(obj)
+            if self._passes(obj):
+                self._on_delete(obj)
 
     def _relist(self, initial: bool) -> None:
         if self.name:
@@ -189,7 +202,8 @@ class Informer:
                     current = self._store.get(key)
                 if current is None:
                     continue
-                self._on_update(current, current)
+                if self._passes(current):
+                    self._on_update(current, current)
 
     def _backoff(self) -> float:
         """Delay before the next relist after a watch/list failure."""

@@ -1,0 +1,146 @@
+"""Rate-limited work queue with client-go semantics.
+
+The port's copy of ``platform_aware_scheduling_tpu/kube/workqueue.py``.
+GAS drains pod events through a ``workqueue.RateLimitingInterface`` with a
+single worker (reference gpu-aware-scheduling/pkg/gpuscheduler/
+node_resource_cache.go:403-449).  This reproduces the semantics that matter:
+items are deduplicated while pending, an item re-added while being processed
+is re-queued when ``done`` is called, ``forget`` resets its failure count,
+and re-adds after failures back off exponentially.
+
+A NAMED queue (``name="gas_pods"``) additionally exports controller-loop
+health: the ``pas_workqueue_depth`` gauge,
+``pas_workqueue_{adds,retries,done}_total`` counters, and — when a
+``recorder`` is attached — a work-latency histogram (get -> done) under
+``pas_request_duration_seconds{verb="workqueue_work"}``.  Unnamed queues
+stay silent, so tests and scratch queues add no metric noise.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from collections import deque
+from typing import Any, Callable, Hashable, Optional, Tuple
+
+from platform_aware_scheduling_tpu_torch.utils import trace
+from platform_aware_scheduling_tpu_torch.utils.tracing import (
+    CounterSet,
+    LatencyRecorder,
+)
+
+WORK_LATENCY_LABEL = "workqueue_work"
+
+
+class WorkQueue:
+    def __init__(
+        self,
+        base_delay: float = 0.005,
+        max_delay: float = 1.0,
+        name: str = "",
+        counters: Optional[CounterSet] = None,
+        recorder: Optional[LatencyRecorder] = None,
+        clock: Callable[[], float] = time.monotonic,
+    ):
+        self._clock = clock
+        self._lock = threading.Condition()
+        self._queue: deque = deque()
+        self._dirty: set = set()
+        self._processing: set = set()
+        self._failures: dict = {}
+        self._started: dict = {}  # item -> perf_counter at get()
+        self._shutdown = False
+        self._base_delay = base_delay
+        self._max_delay = max_delay
+        self.name = name
+        self.counters = counters if counters is not None else trace.COUNTERS
+        self.recorder = recorder
+
+    # -- instrumentation (named queues only) ----------------------------------
+
+    def _labels(self) -> dict:
+        return {"queue": self.name}
+
+    def _inc(self, metric: str, by: float = 1) -> None:
+        if self.name:
+            self.counters.inc(metric, by, labels=self._labels())
+
+    def _set_depth(self) -> None:
+        """Publish the depth gauge; call while HOLDING the queue lock so
+        two racing mutations cannot publish their depths out of order
+        and leave the gauge stale on an idle queue.  (Lock order queue
+        -> CounterSet is acyclic: the CounterSet never calls back.)"""
+        if self.name:
+            self.counters.set_gauge(
+                "pas_workqueue_depth", len(self._queue), labels=self._labels()
+            )
+
+    # -- queue semantics -------------------------------------------------------
+
+    def add(self, item: Hashable) -> None:
+        with self._lock:
+            if self._shutdown or item in self._dirty:
+                return
+            self._dirty.add(item)
+            if item not in self._processing:
+                self._queue.append(item)
+                self._lock.notify()
+                self._set_depth()
+        self._inc("pas_workqueue_adds_total")
+
+    def add_rate_limited(self, item: Hashable) -> None:
+        """Re-add after a failure, with exponential backoff."""
+        failures = self._failures.get(item, 0)
+        self._failures[item] = failures + 1
+        self._inc("pas_workqueue_retries_total")
+        delay = min(self._base_delay * (2**failures), self._max_delay)
+        timer = threading.Timer(delay, self.add, args=(item,))
+        timer.daemon = True
+        timer.start()
+
+    def get(self, timeout: Optional[float] = None) -> Tuple[Any, bool]:
+        """Returns ``(item, shutdown)``; blocks until an item is available or
+        the queue shuts down (then ``(None, True)``)."""
+        deadline = self._clock() + timeout if timeout is not None else None
+        with self._lock:
+            while not self._queue and not self._shutdown:
+                remaining = None
+                if deadline is not None:
+                    remaining = deadline - self._clock()
+                    if remaining <= 0:
+                        return None, False
+                self._lock.wait(remaining)
+            if not self._queue:
+                return None, True
+            item = self._queue.popleft()
+            self._dirty.discard(item)
+            self._processing.add(item)
+            self._started[item] = time.perf_counter()
+            self._set_depth()
+        return item, False
+
+    def done(self, item: Hashable) -> None:
+        with self._lock:
+            started = self._started.pop(item, None)
+            self._processing.discard(item)
+            if item in self._dirty:
+                self._queue.append(item)
+                self._lock.notify()
+                self._set_depth()
+        self._inc("pas_workqueue_done_total")
+        if self.recorder is not None and started is not None:
+            self.recorder.observe(
+                WORK_LATENCY_LABEL, time.perf_counter() - started
+            )
+
+    def forget(self, item: Hashable) -> None:
+        self._failures.pop(item, None)
+
+    def shut_down(self) -> None:
+        with self._lock:
+            self._shutdown = True
+            self._lock.notify_all()
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._queue)

@@ -69,7 +69,10 @@ class TelemetryPolicyController:
 
     def run(self, stop: Optional[threading.Event] = None) -> Informer:
         """Start the CRD informer and return it (the caller may wait for
-        its sync).  A handler that raises is contained to its event."""
+        its sync).  A handler that raises is contained to its event.  The
+        informer stops on ``stop`` itself: told by a thread waiting on it,
+        an informer that took a watch event before that thread ran would
+        wait for one more event before it saw the stop."""
 
         def list_policies():
             obj = self.kube_client.list_taspolicies(self.namespace)
@@ -92,11 +95,10 @@ class TelemetryPolicyController:
             on_update=self._guarded(self.on_update),
             on_delete=self._guarded(self.on_delete),
             name="taspolicy",
+            stop=stop,
         )
         self.informer = informer
         informer.start()
-        if stop is not None:
-            threading.Thread(target=lambda: (stop.wait(), informer.stop()), daemon=True).start()
         return informer
 
     def _guarded(self, fn):

@@ -2,7 +2,7 @@
 bounded DecisionLog ring behind ``GET /debug/decisions``, and the reason
 codes and strings shared by the host and device paths.
 
-The port's copy of the TAS part of
+The port's copy of the TAS and GAS parts of
 ``platform_aware_scheduling_tpu/utils/decisions.py``:
 
   * the device path returns a per-node first-matching-rule index vector
@@ -11,6 +11,9 @@ The port's copy of the TAS part of
     (``tas/strategies/dontschedule.violated_details``).  Both format the
     SAME milli integers through :func:`rule_reason`, so the FailedNodes
     reason strings on the wire are byte-identical on both paths;
+  * GAS Filter carries one class code a node (unknown node, no GPUs, no
+    card fits, error) from the device bin-pack and the host loop alike,
+    rendered by :func:`gas_reason`;
   * a DecisionRecord holds per-node detail by reference to structures
     shared across requests, so recording one is O(1);
   * a Bind observation closes the pod's open records and feeds the
@@ -36,15 +39,26 @@ from platform_aware_scheduling_tpu_torch.utils import trace
 CODE_ELIGIBLE = 0
 CODE_RULE_VIOLATION = 1
 CODE_FAIL_CLOSED = 2
+CODE_GAS_UNKNOWN_NODE = 3
+CODE_GAS_NO_GPUS = 4
+CODE_GAS_CAPACITY = 5
+CODE_GAS_ERROR = 6  # host-loop unexpected failure; no device analog
 
 #: code -> bounded Prometheus ``reason`` label
 CODE_LABELS: Dict[int, str] = {
     CODE_RULE_VIOLATION: "rule_violation",
     CODE_FAIL_CLOSED: "fail_closed",
+    CODE_GAS_UNKNOWN_NODE: "gas_unknown_node",
+    CODE_GAS_NO_GPUS: "gas_no_gpus",
+    CODE_GAS_CAPACITY: "gas_capacity",
+    CODE_GAS_ERROR: "gas_error",
 }
 
 #: the FailedNodes reason of every candidate while Filter fails closed
 REASON_FAIL_CLOSED = "degraded fail-closed"
+REASON_GAS_UNKNOWN = "gas: node unknown to cache"
+REASON_GAS_NO_GPUS = "gas: node has no GPUs"
+REASON_GAS_ERROR = "gas: node could not be evaluated"
 
 _OP_SYMBOLS = {"LessThan": "<", "GreaterThan": ">", "Equals": "=="}
 
@@ -64,6 +78,21 @@ def rule_reason(policy: str, metric: str, operator: str, value_str: str, target_
     ``policy cpu-pol: metric cpu=93 > threshold 80``."""
     sym = _OP_SYMBOLS.get(operator, operator)
     return f"policy {policy}: metric {metric}={value_str} {sym} threshold {target_str}"
+
+
+def gas_reason(code: int, request_summary: str = "") -> str:
+    """The GAS Filter reason for one failed node; the same on the device
+    and host paths, since both derive it from the code and the pod's own
+    request."""
+    if code == CODE_GAS_UNKNOWN_NODE:
+        return REASON_GAS_UNKNOWN
+    if code == CODE_GAS_NO_GPUS:
+        return REASON_GAS_NO_GPUS
+    if code == CODE_GAS_ERROR:
+        return REASON_GAS_ERROR
+    if request_summary:
+        return f"gas: no card fits request ({request_summary})"
+    return "gas: no card fits request"
 
 
 def _rank_bucket(rank: Optional[int]) -> str:
@@ -306,15 +335,26 @@ class DecisionLog:
         self,
         verb: str = "filter",
         reason_code: int = CODE_RULE_VIOLATION,
+        reason_counts: Optional[Dict[int, int]] = None,
         **kwargs,
     ) -> None:
         """One Filter decision; ``filtered`` is the request's exact
-        failed-node count, counted under ``reason_code``."""
+        failed-node count, counted under ``reason_code``, or under each
+        code of ``reason_counts`` ({code: node count}) when one request
+        mixes reason classes (GAS: no-GPU nodes beside capacity misses)."""
         if not self.enabled:
             return
         record = DecisionRecord(verb=verb, **kwargs)
         self.add(record)
-        if record.filtered:
+        if reason_counts:
+            for code, count in reason_counts.items():
+                if count:
+                    trace.COUNTERS.inc(
+                        "pas_decision_filtered_nodes_total",
+                        count,
+                        labels={"reason": CODE_LABELS.get(code, "other")},
+                    )
+        elif record.filtered:
             trace.COUNTERS.inc(
                 "pas_decision_filtered_nodes_total",
                 record.filtered,

@@ -1,8 +1,8 @@
 """Leveled, structured logging in the style of k8s klog.
 
 The port's copy of the part of ``platform_aware_scheduling_tpu/utils/klog.py``
-that the port uses: ``v(level).info_s(msg, component=..)`` and ``error`` on
-top of the stdlib ``logging`` module, with the verbosity set by
+that the port uses: ``v(level).info_s(msg, component=..)``, ``warning`` and
+``error`` on top of the stdlib ``logging`` module, with the verbosity set by
 ``set_verbosity`` or the ``PAS_TPU_LOG_LEVEL`` env var, and
 ``request_context`` stamping the serving request's id on every line.
 """
@@ -93,6 +93,11 @@ class _Verbose:
 
 def v(level: int) -> _Verbose:
     return _Verbose(level <= _verbosity)
+
+
+def warning(msg: str, *args) -> None:
+    _ensure_configured()
+    _logger.warning(msg % args if args else msg)
 
 
 def error(msg: str, *args) -> None:

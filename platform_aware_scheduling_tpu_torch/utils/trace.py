@@ -53,6 +53,8 @@ declare("pas_request_duration_seconds", "histogram", "Verb/stage wall latency (l
 declare("pas_prioritize_exact_total", "counter", "Prioritize requests served by the exact Python path.")
 declare("pas_prioritize_host_fallback_total", "counter", "Device-path failures degraded to host semantics (events; overlaps the partition counters).")
 declare("pas_filter_host_fallback_total", "counter", "Filter device-path failures degraded to host semantics.")
+declare("pas_gas_filter_device_total", "counter", "GAS Filter requests served by the batched device bin-pack.")
+declare("pas_gas_filter_host_total", "counter", "GAS Filter requests served by the host loop.")
 declare("pas_filter_cache_bypass_total", "counter", "Filter requests not cacheable (host-only policy, odd shapes, no native scanner).")
 declare("pas_traces_recorded_total", "counter", "Completed spans recorded into the trace ring buffer.")
 declare("pas_ready", "gauge", "Composite readiness: 1 when every /readyz condition holds, else 0.")
@@ -64,7 +66,12 @@ declare("pas_strategy_evaluations_total", "counter", "Strategy violation evaluat
 declare("pas_strategy_violations_total", "counter", "Violating nodes found by strategy evaluations (label: strategy).")
 declare("pas_strategy_enforcements_total", "counter", "Enforcement passes completed without error (label: strategy).")
 declare("pas_deschedule_host_fallback_total", "counter", "Deschedule evaluations that fell back from the mirror's device to the host path while a mirror was attached.")
-# controller plumbing (kube/informer.py; named instances only)
+# controller plumbing (kube/workqueue.py and kube/informer.py; named
+# instances only)
+declare("pas_workqueue_depth", "gauge", "Current work-queue depth (label: queue).")
+declare("pas_workqueue_adds_total", "counter", "Items accepted into the work queue (label: queue).")
+declare("pas_workqueue_retries_total", "counter", "Rate-limited re-adds after failures (label: queue).")
+declare("pas_workqueue_done_total", "counter", "Items finished processing (label: queue).")
 declare("pas_informer_relists_total", "counter", "Informer list/re-list passes started (label: informer).")
 declare("pas_informer_watch_errors_total", "counter", "Informer watch streams that broke and forced a re-list (label: informer).")
 declare("pas_informer_synced", "gauge", "1 once the informer's initial list has delivered (label: informer).")
