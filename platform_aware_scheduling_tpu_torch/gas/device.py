@@ -330,7 +330,9 @@ class DeviceBinpacker:
         ``with_reasons`` the return is ``(fits, codes)``: 0 fit,
         gas_unknown_node and gas_no_gpus for the pre-failed lanes,
         gas_capacity where the bin-pack said no — the classes the host
-        loop's typed exceptions give."""
+        loop's typed exceptions give.  A node the staged path cannot read
+        raises ``StagingError``; an error of the device (a kernel that does
+        not build or launch, a shape it refuses) propagates as it is."""
         requests = container_requests(pod)
         shares = [gas_logic.get_per_gpu_resource_request(req) for req in requests]
         max_gpus = max((k for _, k in shares), default=0)
@@ -412,12 +414,15 @@ class DeviceBinpacker:
             except Exception:
                 codes[pos] = decisions.CODE_GAS_UNKNOWN_NODE
                 continue
-            gpus = gas_logic.get_node_gpu_list(node)
-            if not gpus:
-                codes[pos] = decisions.CODE_GAS_NO_GPUS
-                continue
-            capacity = gas_logic.get_per_gpu_resource_capacity(node, len(gpus))
-            used = self.cache.get_node_resource_status(name)
+            try:
+                gpus = gas_logic.get_node_gpu_list(node)
+                if not gpus:
+                    codes[pos] = decisions.CODE_GAS_NO_GPUS
+                    continue
+                capacity = gas_logic.get_per_gpu_resource_capacity(node, len(gpus))
+                used = self.cache.get_node_resource_status(name)
+            except Exception as exc:
+                raise gas_logic.StagingError(f"cannot stage node {name}: {exc}") from exc
             cards = sorted(set(gpus) | set(used))
             max_cards = max(max_cards, len(cards))
             staged.append((pos, cards, capacity, used, set(gpus)))

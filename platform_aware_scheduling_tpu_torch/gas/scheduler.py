@@ -20,9 +20,13 @@ kept:
 
 Filter runs the fit check of every candidate node as ONE bin-pack
 (``gas/device.py`` → ``ops/binpack.py``, the CUDA kernel on the card) in
-place of the reference's loop over nodes; the host loop stays as the exact
-control and as the fallback when the device path fails, which it logs and
-counts in ``pas_gas_filter_host_total``.  The JAX extender's admission,
+place of the reference's loop over nodes.  The host loop stays as the exact
+control and, as in the JAX package, answers a request whose nodes staging
+cannot read (logged, counted in ``pas_gas_filter_host_total``).  A failure
+of the device itself (a kernel that does not build or launch, a shape it
+refuses) is an error answer, counted in
+``pas_gas_filter_device_error_total``: the host loop never stands in for
+the card.  The JAX extender's admission,
 SLO, budget-control and flight-recorder attachments are not ported yet.
 """
 
@@ -69,6 +73,13 @@ class WontFitError(Exception):
 class NoGPUsError(WontFitError):
     """The node has no GPUs (vanished or never labelled): its own reason
     class, so the host loop and the device bin-pack give it the same code."""
+
+
+class StagingError(ValueError):
+    """A node that the staged bin-pack cannot read (a malformed capacity),
+    raised before any device work: the host loop then gives each node its
+    typed verdict, as in the JAX package.  Every other error of the device
+    path is the device's own and is never answered from the host."""
 
 
 def request_summary(pod: Pod) -> str:
@@ -216,9 +227,14 @@ class GASExtender:
             if self._device is not None:
                 try:
                     res = self._device.batch_fit(args.pod, args.node_names, with_reasons=True)
-                except Exception as exc:
-                    klog.error("device binpack failed, host fallback: %s", exc)
+                except StagingError as exc:
+                    klog.error("device binpack cannot stage a node, host fallback: %s", exc)
                     res = None
+                except Exception as exc:
+                    klog.error("device binpack failed: %s", exc)
+                    span.set("path", "device")
+                    trace.COUNTERS.inc("pas_gas_filter_device_error_total")
+                    return FilterResult(error=f"device binpack failed: {exc}")
                 if res is not None:
                     fits, codes = res
                     span.set("path", "device")

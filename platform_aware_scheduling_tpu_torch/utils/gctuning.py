@@ -1,5 +1,4 @@
-"""Latency-service posture for the extender process: collection and
-interpreter-lock switching.
+"""Latency-service GC posture for the extender process.
 
 The port's copy of ``platform_aware_scheduling_tpu/utils/gctuning.py``.
 Request handling allocates bulk bytes (parsed bodies, response buffers)
@@ -9,32 +8,20 @@ scans the module graph for garbage that refcounting reclaims anyway.
 The service main applies the usual tuning once, after the informers'
 initial lists are in: freeze the warmed start-up heap out of collection
 and raise the generation-0 threshold.
-
-The posture also shortens the interpreter's switch interval.  A request
-hands the interpreter lock back and forth at each socket read and write;
-while a background loop (a deschedule pass listing 10,000 nodes, a
-refresh pass) keeps the lock busy, each handoff waits out the interval,
-5 ms by default, and a request with a dozen handoffs stalls ~60 ms.
 """
 
 from __future__ import annotations
 
 import gc
-import sys
 
 from platform_aware_scheduling_tpu_torch.utils import klog
 
-#: seconds a thread may hold the interpreter lock while another waits
-SWITCH_INTERVAL_S = 0.0005
-
 
 def tune_for_serving() -> None:
-    """Apply the serving posture."""
+    """Apply the serving GC posture."""
     gc.collect()
     gc.freeze()
     gc.set_threshold(100_000, 50, 50)
-    sys.setswitchinterval(SWITCH_INTERVAL_S)
     klog.v(2).info_s(
-        "tuned for serving (startup heap frozen, gen0 threshold 100k, switch interval 0.5 ms)",
-        component="extender",
+        "GC tuned for serving (startup heap frozen, gen0 threshold 100k)", component="extender"
     )

@@ -55,6 +55,7 @@ declare("pas_prioritize_host_fallback_total", "counter", "Device-path failures d
 declare("pas_filter_host_fallback_total", "counter", "Filter device-path failures degraded to host semantics.")
 declare("pas_gas_filter_device_total", "counter", "GAS Filter requests served by the batched device bin-pack.")
 declare("pas_gas_filter_host_total", "counter", "GAS Filter requests served by the host loop.")
+declare("pas_gas_filter_device_error_total", "counter", "GAS Filter requests answered with an error because the device bin-pack failed.")
 declare("pas_filter_cache_bypass_total", "counter", "Filter requests not cacheable (host-only policy, odd shapes, no native scanner).")
 declare("pas_traces_recorded_total", "counter", "Completed spans recorded into the trace ring buffer.")
 declare("pas_ready", "gauge", "Composite readiness: 1 when every /readyz condition holds, else 0.")

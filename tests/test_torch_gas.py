@@ -511,6 +511,44 @@ def test_filter_unknown_request_resource(twins):
     twins.check_state()
 
 
+def test_filter_unreadable_node_takes_the_host_loop():
+    """A node capacity that staging cannot read is a data error: the
+    staged bin-pack gives the request to the host loop, which fails that
+    node alone, as the JAX package does, and counts a host Filter."""
+    twins = Twins("staged")
+    twins.add_node("n1")
+    twins.each(lambda s: s.kube.add_node(s.builders.make_node(
+        "broken", labels={"gpu.intel.com/cards": "card0"},
+        allocatable={"gpu.intel.com/i915": "1", "gpu.intel.com/millicores": "lots"})))
+    twins.sync()
+    before = trace.COUNTERS.get("pas_gas_filter_host_total")
+    status, out = twins.filter(gpu_pod(builders, "p"), ["n1", "broken"])
+    assert status == 200 and out["NodeNames"] == ["n1"] and list(out["FailedNodes"]) == ["broken"]
+    assert trace.COUNTERS.get("pas_gas_filter_host_total") == before + 1
+
+
+@pytest.mark.parametrize("mode", ("staged", "mirror"))
+def test_filter_device_failure_is_an_error_answer(mode, monkeypatch):
+    """A bin-pack that fails on the device (a kernel that does not build or
+    launch, a shape it refuses) is an error answer: the host loop never
+    answers in its place."""
+    side = Side(False, mode)
+    side.kube.add_node(gpu_node(builders, "n1"))
+    replay(side.cache)
+
+    def failing(*_args):
+        raise RuntimeError("binpack kernel launch failed: cudaError 700")
+
+    monkeypatch.setattr("platform_aware_scheduling_tpu_torch.gas.device.binpack", failing)
+    counts = lambda: [trace.COUNTERS.get(f"pas_gas_filter_{path}_total") for path in ("host", "device", "device_error")]
+    before = counts()
+    body = json.dumps({"Pod": gpu_pod(builders, "p").raw, "NodeNames": ["n1"]}).encode()
+    got = side.ext.filter(side.request("filter", body))
+    assert got.status == 404
+    assert json.loads(got.body)["Error"] == "device binpack failed: binpack kernel launch failed: cudaError 700"
+    assert counts() == [before[0], before[1], before[2] + 1]
+
+
 def test_prioritize_is_404(twins):
     assert twins.verb("prioritize", {})[0] == 404
 
