@@ -3,7 +3,8 @@
 The kernel (``csrc/binpack.cu``) replaces the device program of
 ``platform_aware_scheduling_tpu/ops/binpack.py`` (``binpack_kernel``); its
 source note gives the design and the bound.  This wrapper checks its
-inputs, allocates the outputs, launches on PyTorch's current stream and
+inputs, allocates the outputs (and, for a request of many resources, the
+scratch the kernel asks for), launches on PyTorch's current stream and
 raises on a launch error.  Its plain counterpart is
 ``ops/binpack.binpack_reference``.
 """
@@ -11,6 +12,7 @@ raises on a launch error.  Its plain counterpart is
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -22,6 +24,7 @@ from platform_aware_scheduling_tpu_torch.ops.binpack import (
 )
 
 _lib = None
+_limits = None
 
 _DTYPES = {
     "used": torch.int64,
@@ -37,30 +40,43 @@ _DTYPES = {
 }
 
 
+class _Limits(NamedTuple):
+    cards: int  # largest C
+    containers: int  # largest T
+    register_resources: int  # largest R that never needs a scratch
+
+
 def _library() -> ctypes.CDLL:
     """The kernel's library, built on first use, with its C signatures
-    declared (every pointer and the stream as ``c_void_p``)."""
-    global _lib
+    declared (every pointer and the stream as ``c_void_p``) and its limits
+    read once."""
+    global _lib, _limits
     if _lib is None:
         lib = _build.load("binpack")
-        lib.binpack_launch.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        lib.binpack_launch.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         lib.binpack_launch.restype = ctypes.c_int
-        lib.binpack_max_cards.argtypes = []
-        lib.binpack_max_cards.restype = ctypes.c_int
-        lib.binpack_max_containers.argtypes = []
-        lib.binpack_max_containers.restype = ctypes.c_int
+        lib.binpack_scratch_elems.argtypes = [ctypes.c_int] * 3
+        lib.binpack_scratch_elems.restype = ctypes.c_longlong
+        for name in ("binpack_max_cards", "binpack_max_containers", "binpack_register_resources"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = ctypes.c_int
+        _limits = _Limits(
+            lib.binpack_max_cards(), lib.binpack_max_containers(), lib.binpack_register_resources()
+        )
         _lib = lib
     return _lib
 
 
 def max_cards() -> int:
     """Largest C (card lanes a node) the kernel takes."""
-    return _library().binpack_max_cards()
+    _library()
+    return _limits.cards
 
 
 def max_containers() -> int:
     """Largest T (containers a pod) the kernel takes."""
-    return _library().binpack_max_containers()
+    _library()
+    return _limits.containers
 
 
 def _check(state: BinpackNodeState, request: BinpackRequest, max_gpus: int) -> None:
@@ -99,10 +115,11 @@ def _check(state: BinpackNodeState, request: BinpackRequest, max_gpus: int) -> N
         raise ValueError(f"binpack_cuda: max_gpus {max_gpus} is negative")
     if n >= 2**31 or r >= 2**31 or max_gpus >= 2**31:
         raise ValueError("binpack_cuda: a dimension exceeds int32")
-    if c == 0 or c > max_cards():
-        raise ValueError(f"binpack_cuda: C={c} card lanes, the kernel takes 1 to {max_cards()}")
-    if t > max_containers():
-        raise ValueError(f"binpack_cuda: T={t} containers, the kernel takes at most {max_containers()}")
+    _library()
+    if c == 0 or c > _limits.cards:
+        raise ValueError(f"binpack_cuda: C={c} card lanes, the kernel takes 1 to {_limits.cards}")
+    if t > _limits.containers:
+        raise ValueError(f"binpack_cuda: T={t} containers, the kernel takes at most {_limits.containers}")
 
 
 def binpack_cuda(state: BinpackNodeState, request: BinpackRequest, max_gpus: int) -> BinpackResult:
@@ -116,12 +133,18 @@ def binpack_cuda(state: BinpackNodeState, request: BinpackRequest, max_gpus: int
     cards = torch.empty((n, t, max_gpus), dtype=torch.int32, device=device)
     if n == 0:
         return BinpackResult(fits=fits, cards=cards)
+    scratch = None
+    if r > _limits.register_resources:
+        elems = _lib.binpack_scratch_elems(n, c, r)
+        if elems:
+            scratch = torch.empty(elems, dtype=torch.int64, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = _library().binpack_launch(
+        err = _lib.binpack_launch(
             *(tensor.data_ptr() for tensor in (*state, *request)),
             fits.data_ptr(),
             cards.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
             n,
             c,
             r,

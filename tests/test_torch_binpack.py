@@ -4,8 +4,9 @@ JAX package's ``binpack_kernel``: one seeded numpy state goes through JAX
 version.  ``fits`` and ``cards`` must be equal, element for element, on
 the edge cases of ``tests/test_binpack_edges.py``, on the cases the CUDA
 kernel's design turns on (repeat picks, card order unlike lane order,
-inactive lanes, wide T x K, a grown C x R) and on 256 random states with
-int64 values near the bounds.  The CUDA kernel itself runs only on the
+inactive lanes, wide T x K, a grown C x R, R = 12, the JAX tie at order
+2^30 with and without padding lanes) and on 256 random states with int64
+values near the bounds.  The CUDA kernel itself runs only on the
 card: ``chip_smoke.py`` holds it against this plain version there."""
 
 import threading
@@ -264,9 +265,8 @@ def test_random_states(seed):
 # -- fit_one_node, the dispatch, the conversion ---------------------------------------------
 
 
-def test_fit_one_node_matches_jax():
-    rng = np.random.default_rng(9)
-    k, inputs = random_state(rng)
+def check_fit_one_node(k, inputs):
+    """``fit_one_node`` against the JAX ``_fit_one_node`` on every row."""
     jax_state, jax_request, state, request = twin_inputs(**inputs)
     jax_fit_one_node = jax.jit(jax_binpack._fit_one_node, static_argnums=6)
     for row in range(state.used.shape[0]):
@@ -287,6 +287,79 @@ def test_fit_one_node_matches_jax():
         np.testing.assert_array_equal(picks.numpy(), np.asarray(j_picks))
         if bool(ok):  # used_out means something only where the pod fits
             np.testing.assert_array_equal(used_out.numpy(), jax_i64.to_int64_np(j_used))
+
+
+def test_fit_one_node_matches_jax():
+    rng = np.random.default_rng(9)
+    check_fit_one_node(*random_state(rng))
+
+
+# -- the cases the CUDA kernel's selection and layout turn on ----------------------------
+
+BIG = 2**30
+TIE_CASES = {
+    # best is the min over real lanes of where(fits, order, 2^30): a fitting
+    # lane of order exactly 2^30 is picked above a lower lane that does not
+    # fit; one past 2^30 is lost beside it
+    "a fitting lane of order 2^30 above a lower lane that does not fit": (2, dict(
+        used=[[[0] * 4] * 8, [[50] + [0] * 3] + [[0] * 4] * 7, [[0] * 4] * 8,
+              [[0] * 4, [90] + [0] * 3] + [[0] * 4] * 6],
+        capacity=[[100] * 4] * 4, need=[[60, 0, 0, 0]], num_gpus=[2],
+        card_valid=[[False] + [True] * 7] + [[True] * 8] * 3,
+        card_order=[[0, BIG] + [BIG + 1] * 6, [0, BIG, BIG] + [BIG + 1] * 5,
+                    [BIG + 2, BIG + 1, BIG + 1] + [BIG + 3] * 5, [BIG, 7, 9, BIG] + [BIG + 5] * 4],
+    ), ([False, True, False, True], [[1, -1], [1, 2], [1, -1], [2, 0]])),
+    # C = 5, which the kernel spreads over a group of 8 lanes: the 3 padding
+    # lanes must not stand in for JAX lanes beside orders past 2^30
+    "padding lanes (C=5 in a group of 8) beside orders past 2^30": (2, dict(
+        used=[[[0] * 4] * 5] * 4, capacity=[[100] * 4] * 4, need=[[40, 0, 0, 0]], num_gpus=[2],
+        card_valid=[[True, False, False, False, False]] + [[True] * 5] * 3,
+        card_real=[[True] * 5, [True] * 5, [True, True, True, False, False], [True] * 5],
+        card_order=[[BIG + 1, 0, 1, 2, 3], [BIG + 3, BIG + 1, BIG + 2, BIG + 1, BIG + 5],
+                    [BIG + 1, BIG + 2, BIG + 3, 0, 1], [5, BIG + 1, 3, BIG + 1, BIG + 2]],
+    ), ([False, True, False, True], [[-1, -1], [1, 1], [-1, -1], [2, 2]])),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TIE_CASES))
+def test_order_tie_at_big_order(name):
+    k, inputs, (want_fits, want_cards) = TIE_CASES[name]
+    fits, cards = run_both(k, **inputs)
+    assert fits.tolist() == want_fits and cards[:, 0].tolist() == want_cards
+
+
+@pytest.mark.parametrize("name", sorted(TIE_CASES))
+def test_order_tie_at_big_order_fit_one_node(name):
+    k, inputs, _want = TIE_CASES[name]
+    check_fit_one_node(k, inputs)
+
+
+def r12_state():
+    """A mirror grown to R = 12 resources: the kernel holds 8 in registers
+    and the rest in shared memory."""
+    rng = np.random.default_rng(15)
+    n, c, r = 16, 8, 12
+    return 3, dict(
+        used=rng.integers(0, 40, (n, c, r)),
+        capacity=rng.integers(60, 200, (n, r)),
+        need=rng.integers(0, 30, (3, r)),
+        need_active=rng.random((3, r)) < 0.5,
+        cap_present=rng.random((n, r)) < 0.98,
+        card_valid=rng.random((n, c)) < 0.9,
+        card_real=np.arange(c)[None, :] < rng.integers(1, c + 1, (n, 1)),
+        card_order=np.stack([rng.permutation(c) for _ in range(n)]),
+        num_gpus=[3, 1, 2],
+    )
+
+
+def test_grown_mirror_r12():
+    k, inputs = r12_state()
+    fits, cards = run_both(k, **inputs)
+    assert fits.any() and (cards >= 0).any()
+
+
+def test_grown_mirror_r12_fit_one_node():
+    check_fit_one_node(*r12_state())
 
 
 def test_cpu_dispatch_is_the_reference():
