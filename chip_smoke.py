@@ -11,10 +11,13 @@ nodes, 8 metrics, 4 TAS policies, 1,000 pending pods — through 5 sync
 periods, checking every plan against the same planner on the CPU and that
 each replan launched the kernel once.  Then it serves the TAS verbs
 (Filter, Prioritize, Bind) from the port's ``Server`` on 127.0.0.1 over a
-CUDA-mirror extender steered by that planner, holds every response against
-a CPU-mirror extender and the host path, and times the verbs, holding
-verb p99, warm-pass and replan times to the limits ``PERF.md`` section 2
-sets.  Then the service phase runs the TAS service as ``cmd/tas.main``
+CUDA-mirror extender steered by that planner, through the native wire
+path (the ``_wirec_torch`` extension, built with ``cc`` beside the
+kernels; the run fails without it), holds every response against a
+CPU-mirror extender and the host path with the extension off, and times
+native Prioritize, Filter hits and Filter misses, then both verbs on the
+exact path, holding the native verbs' p99, warm-pass and replan times to
+the limits ``PERF.md`` section 2 sets.  Then the service phase runs the TAS service as ``cmd/tas.main``
 wires it (degraded mode, leader election) over the port's fake API server
 at the same size, and the faults phase adds a second replica and drives a
 metrics-API outage, a kube-API outage and a failover through a shared
@@ -28,7 +31,8 @@ states and a state for every template instance, whose registers and stack
 ``nvcc -Xptxas -v`` reports).  Prints the card, the timings (the greedy
 kernel's two stages and its rescans at the main path's inputs and three
 others; the verbs' p50/p99, their slowest requests' stages and the warm
-passes; GAS Filter and Bind p50/p99; each kernel's device time, from 50
+passes; the partition counters each timed run moved and the wire
+caches; GAS Filter and Bind p50/p99; each kernel's device time, from 50
 calls captured in a CUDA graph and from ``torch.profiler``, beside the
 time of its wrapper's calls), a ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
@@ -42,6 +46,7 @@ import contextlib
 import gc
 import json
 import logging
+import os
 import re
 import statistics
 import subprocess
@@ -65,6 +70,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 SEED = 0
 # the end-to-end limits of PERF.md section 2, held on the card
 VERB_P99_LIMIT_MS = 30.0
+VERB_P99_TARGET_MS = 20.0  # the JAX package's target, reported against the native path, not held
 REFRESH_WARM_LIMIT_MS = 250.0
 REPLAN_P50_LIMIT_MS = 100.0
 
@@ -602,6 +608,89 @@ def replan_breakdown(torch, planner, repeats: int = 5) -> dict:
 SCORING_FUNCTIONS = ("ordinal_scores", "prioritize", "batch_prioritize", "filter", "filter_explain")
 TIMED_REQUESTS = 500
 SUBSET = 1_000
+# Filter misses: candidate lists that drop a different 1% of the names
+# each, taken in turn; more of them than the universe cache's once-seen
+# ring (64) and the span cache (32) hold, so every one is a cold list
+MISS_SUBSETS = 80
+MISS_REQUESTS = 200
+EXACT_REQUESTS = 200  # each verb on the exact path, the extension switched off
+PARTITION_COUNTERS = (
+    "pas_prioritize_native_total",
+    "pas_prioritize_native_host_total",
+    "pas_prioritize_exact_total",
+    "pas_prioritize_host_fallback_total",
+    "pas_filter_host_fallback_total",
+    "pas_fastpath_response_hit_total",
+    "pas_fastpath_response_miss_total",
+    "pas_filter_cache_hit_total",
+    "pas_filter_cache_miss_total",
+    "pas_filter_cache_bypass_total",
+    "pas_wire_intern_hits_total",
+    "pas_wire_intern_misses_total",
+    "pas_wire_intern_evictions_total",
+)
+
+
+# the counters that partition each verb's requests by the path that
+# answered (host fallbacks beside them), as counter_moves names them
+VERB_PARTITIONS = {
+    "prioritize": ("prioritize_native", "prioritize_native_host", "prioritize_exact", "prioritize_host_fallback"),
+    "filter": ("filter_cache_hit", "filter_cache_miss", "filter_cache_bypass", "filter_host_fallback"),
+}
+
+
+@contextlib.contextmanager
+def native_off():
+    """The wire extension switched off inside the block, as an operator
+    switches it off (``PAS_TPU_NO_NATIVE=1``): every verb takes the exact
+    path."""
+    old = os.environ.get("PAS_TPU_NO_NATIVE")
+    os.environ["PAS_TPU_NO_NATIVE"] = "1"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["PAS_TPU_NO_NATIVE"]
+        else:
+            os.environ["PAS_TPU_NO_NATIVE"] = old
+
+
+def partition_counters() -> dict:
+    from platform_aware_scheduling_tpu_torch.utils import trace
+
+    return {name: trace.COUNTERS.get(name) for name in PARTITION_COUNTERS}
+
+
+def counter_moves(before: dict) -> dict:
+    """The partition counters' moves since ``before``, zeros left out."""
+    now = partition_counters()
+    return {name.removeprefix("pas_").removesuffix("_total"): now[name] - before[name]
+            for name in PARTITION_COUNTERS if now[name] != before[name]}
+
+
+class PathsServed:
+    """Counts the path of each verb span the servers complete (a socket
+    request's; in-process controls make none): ``verb path`` and, for
+    Filter, its response-cache outcome."""
+
+    def __init__(self):
+        import threading
+
+        self.counts = {}
+        self._lock = threading.Lock()
+
+    def __call__(self, span) -> None:
+        verb = span.attrs.get("verb")
+        if verb not in ("filter", "prioritize"):
+            return
+        key = f"{verb} {span.attrs.get('path', '-')}"
+        if verb == "filter":
+            key += f"/{span.attrs.get('filter_cache', '-')}"
+        with self._lock:
+            self.counts[key] = self.counts.get(key, 0) + 1
+
+    def line(self) -> str:
+        return ", ".join(f"{k} {v}" for k, v in sorted(self.counts.items())) or "none"
 
 
 def expected_warm_calls() -> dict:
@@ -673,9 +762,13 @@ def run_verbs(torch, np, world: dict, device: str) -> dict:
     127.0.0.1 at the main path's 10,000 nodes.  Every response over the
     socket is held against the same extender over a CPU mirror, and
     Filter (and Prioritize where ties cannot reorder) against the host
-    path; then the verbs are timed."""
+    path, both with the wire extension switched off; the CUDA extender
+    serves through it, as ``main`` does.  Then the verbs are timed: native
+    Prioritize, Filter hits and Filter misses, then both verbs on the
+    exact path (the extension switched off) for the comparison."""
     import http.client
 
+    from platform_aware_scheduling_tpu_torch import native
     from platform_aware_scheduling_tpu_torch.extender.server import HTTPRequest, Server
     from platform_aware_scheduling_tpu_torch.ops import scoring
     from platform_aware_scheduling_tpu_torch.ops.cuda_assign import greedy_assign_cuda
@@ -689,6 +782,7 @@ def run_verbs(torch, np, world: dict, device: str) -> dict:
     cpu_planner, mirror = world["planners"]["cpu"], world["mirrors"]["dut"]
     nodes, values = world["nodes"], world["values"]
     check(mirror.device.type == device, f"the verbs' mirror is not on {device}")
+    check(native.get_wirec() is not None, "verbs: the wire extension _wirec_torch is not loaded")
     ext = MetricsExtender(cache, mirror=mirror, planner=planner, node_cache_capable=True)
     # the controls see the same cache writes through a cache of their own,
     # so the scoring counters below count the CUDA extender's calls alone
@@ -828,27 +922,41 @@ def run_verbs(torch, np, world: dict, device: str) -> dict:
         bind = {"PodName": pod_a, "PodNamespace": "default", "PodUID": "u", "Node": node_a}
         mix.append(("bind", "bind", json.dumps(bind).encode(), True, None))
 
-        promoted = host_checked = 0
-        for verb, label, body, host_equal, planned in mix:
-            status, data, _s = send("POST", f"/scheduler/{verb}", body)
-            for control, control_server in controls.items():
-                if control == "host" and not host_equal:
-                    continue
-                want = control_server.route(
+        def control_answer(control, verb, body):
+            with native_off():
+                want = controls[control].route(
                     HTTPRequest("POST", f"/scheduler/{verb}", {"Content-Type": "application/json"}, body)
                 )
-                check(
-                    (status, data) == (want.status, want.body),
-                    f"verbs {verb} {label}: the CUDA extender differs from the {control} control",
-                )
-                host_checked += control == "host"
-            if planned is not None:
-                check(
-                    json.loads(data)[0] == {"Host": planned, "Score": 10},
-                    f"verbs {verb} {label}: the planned node {planned} is not ranked first",
-                )
-                promoted += 1
-        check(promoted >= 8, f"verbs: only {promoted} planned pods checked")
+            return want.status, want.body
+
+        # the mix twice: the first pass interns and caches, the second is
+        # served from the caches; each answer against the controls'
+        promoted = host_checked = 0
+        wants = {}
+        mix_paths = PathsServed()
+        trace.SPAN_OBSERVERS.append(mix_paths)
+        try:
+            for verb, label, body, host_equal, planned in mix + mix:
+                status, data, _s = send("POST", f"/scheduler/{verb}", body)
+                for control in controls:
+                    if control == "host" and not host_equal:
+                        continue
+                    if (control, verb, body) not in wants:
+                        wants[control, verb, body] = control_answer(control, verb, body)
+                    check(
+                        (status, data) == wants[control, verb, body],
+                        f"verbs {verb} {label}: the CUDA extender differs from the {control} control",
+                    )
+                    host_checked += control == "host"
+                if planned is not None:
+                    check(
+                        json.loads(data)[0] == {"Host": planned, "Score": 10},
+                        f"verbs {verb} {label}: the planned node {planned} is not ranked first",
+                    )
+                    promoted += 1
+        finally:
+            trace.SPAN_OBSERVERS.remove(mix_paths)
+        check(promoted >= 16, f"verbs: only {promoted} planned pods checked")
         check(scoring_calls() == calls_served, "verbs: a request of the mix ran a scoring function")
         status, data, _s = send("GET", "/readyz", content_type=None)
         check(status == 200, f"verbs: /readyz answered {status}: {data[:200]!r}")
@@ -856,42 +964,68 @@ def run_verbs(torch, np, world: dict, device: str) -> dict:
 
         # -- timing over the socket -----------------------------------------------
         # the server's spans are taken as they complete, matched to the
-        # client's times by X-Request-ID
-        timed = {}
-        stages = {}
+        # client's times by X-Request-ID.  Native Prioritize and Filter hits
+        # over the 8 all-names bodies; Filter misses over MISS_SUBSETS cold
+        # candidate lists in turn; then both verbs on the exact path
+        all_names = [
+            args_body(pod, f"pol-{k}", nodes) for k in range(4) for pod, _node in by_policy[f"pol-{k}"][:2]
+        ]
+        drop = max(1, len(nodes) // 100)
+        miss_bodies = [
+            args_body(by_policy[f"pol-{i % 4}"][0][0], f"pol-{i % 4}", nodes[: i * drop] + nodes[(i + 1) * drop :])
+            for i in range(MISS_SUBSETS)
+        ]
+        runs = [
+            # label, verb, bodies, requests, native, the partition it must fill
+            ("prioritize", "prioritize", all_names, TIMED_REQUESTS, True, "prioritize_native"),
+            ("filter hit", "filter", all_names, TIMED_REQUESTS, True, "filter_cache_hit"),
+            ("filter miss", "filter", miss_bodies, MISS_REQUESTS, True, "filter_cache_miss"),
+            ("exact prioritize", "prioritize", all_names, EXACT_REQUESTS, False, "prioritize_exact"),
+            ("exact filter", "filter", all_names, EXACT_REQUESTS, False, "filter_cache_bypass"),
+        ]
+        for _label, verb, bodies, _n, _native, _partition in runs:
+            for body in bodies:  # the CPU-mirror control's answers, taken before any timing
+                if ("cpu mirror", verb, body) not in wants:
+                    wants["cpu mirror", verb, body] = control_answer("cpu mirror", verb, body)
+        timed, stages, moves = {}, {}, {}
         trace.SPAN_OBSERVERS.append(spans.append)
-        for verb in ("filter", "prioritize"):
-            bodies = [
-                args_body(pod, f"pol-{k}", nodes)
-                for k in range(4)
-                for pod, _node in by_policy[f"pol-{k}"][:2]
-            ]
-            for body in bodies:  # warm-up
-                send("POST", f"/scheduler/{verb}", body)
-            ids = [f"timed-{verb}-{i}" for i in range(TIMED_REQUESTS)]
-            times = []
-            with collections() as pauses:
-                for i, request_id in enumerate(ids):
-                    status, _data, seconds = send(
-                        "POST", f"/scheduler/{verb}", bodies[i % len(bodies)], request_id=request_id
-                    )
-                    check(status == 200, f"verbs: timed {verb} answered {status}")
-                    times.append(seconds * 1e3)
-            deadline = time.perf_counter() + 5.0
-            while (not spans or spans[-1].trace_id != ids[-1]) and time.perf_counter() < deadline:
-                time.sleep(0.01)  # the last span is added after its response is sent
+        for label, verb, bodies, n, on, partition in runs:
+            with contextlib.nullcontext() if on else native_off():
+                if label != "filter miss":  # warm-up: intern the lists, seed the caches
+                    for body in bodies + bodies:
+                        send("POST", f"/scheduler/{verb}", body)
+                ids = [f"timed-{label.replace(' ', '-')}-{i}" for i in range(n)]
+                times = []
+                before = partition_counters()
+                with collections() as pauses:
+                    for i, request_id in enumerate(ids):
+                        body = bodies[i % len(bodies)]
+                        status, data, seconds = send("POST", f"/scheduler/{verb}", body, request_id=request_id)
+                        times.append(seconds * 1e3)
+                        check(
+                            (status, data) == wants["cpu mirror", verb, body],
+                            f"verbs: timed {label} differs from the CPU-mirror control",
+                        )
+                deadline = time.perf_counter() + 5.0
+                while (not spans or spans[-1].trace_id != ids[-1]) and time.perf_counter() < deadline:
+                    time.sleep(0.01)  # the last span is added after its response is sent
+                moved = counter_moves(before)
+            moves[label] = moved
+            family = {k: v for k, v in moved.items() if k in VERB_PARTITIONS[verb]}
+            check(family == {partition: n}, f"verbs: timed {label} moved the partition counters {moved}")
             by_id = {span.trace_id: span for span in spans}
-            check(all(i in by_id for i in ids), f"verbs: {verb} spans missing")
+            check(all(i in by_id for i in ids), f"verbs: {label} spans missing")
             timed_spans = [by_id[i] for i in ids]
             paths = {span.attrs.get("path") for span in timed_spans}
-            check(paths == {"device"}, f"verbs: timed {verb} spans took paths {paths}")
-            check(scoring_calls() == calls_served, f"verbs: a timed {verb} ran a scoring function")
+            check(paths == {"native" if on else "device"}, f"verbs: timed {label} spans took paths {paths}")
+            check(scoring_calls() == calls_served, f"verbs: a timed {label} ran a scoring function")
             slowest = sorted(range(len(times)), key=times.__getitem__)[-3:][::-1]
-            timed[verb] = {
+            timed[label] = {
                 "p50_ms": statistics.median(times),
                 "p99_ms": percentile(times, 0.99),
                 "max_ms": max(times),
                 "n": len(times),
+                "native": on,
                 "gc": pauses,
                 "slowest": [
                     {
@@ -909,8 +1043,12 @@ def run_verbs(torch, np, world: dict, device: str) -> dict:
             per_stage["outside the server span"] = [
                 t - span.duration_s * 1e3 for t, span in zip(times, timed_spans)
             ]
-            stages[verb] = {name: statistics.median(ms) for name, ms in per_stage.items()}
+            stages[label] = {name: statistics.median(ms) for name, ms in per_stage.items()}
             spans.clear()
+        status, data, _s = send("GET", "/debug/wire", content_type=None)
+        check(status == 200, f"verbs: /debug/wire answered {status}")
+        wire = json.loads(data)
+        check(wire["enabled"] and wire["occupancy"] == len(wire["universes"]) > 0, "verbs: no universe interned")
         check_warm("after the timed requests")
 
         # device time of the warm pass's scoring calls at the mirror's shape
@@ -944,6 +1082,15 @@ def run_verbs(torch, np, world: dict, device: str) -> dict:
     return {
         "timed": timed,
         "stages": stages,
+        "moves": moves,
+        "mix_paths": mix_paths.line(),
+        "wire": {
+            "universes": wire["occupancy"],
+            "capacity": wire["capacity"],
+            "filter_skeletons": len(wire["skeletons"]["filter"]),
+            "prioritize_skeletons": len(wire["skeletons"]["prioritize"]),
+            "counters": wire["counters"],
+        },
         "refreshes": refreshes,
         "first_ms": first_s * 1e3,
         "calls": calls,
@@ -959,7 +1106,6 @@ def run_verbs(torch, np, world: dict, device: str) -> dict:
 
 
 def verbs_line(verbs: dict, card: str) -> str:
-    f, p = verbs["timed"]["filter"], verbs["timed"]["prioritize"]
     calls = verbs["calls"]
     refreshes = "; ".join(
         f"{name} refresh {r['refresh_ms']:.3f} ms, its passes {sum(r['warm_ms']):.3f} ms "
@@ -967,16 +1113,38 @@ def verbs_line(verbs: dict, card: str) -> str:
         f"{sum(r['gc_ms']):.3f} ms"
         for name, r in zip(("first", "second"), verbs["refreshes"])
     )
+    runs = ", ".join(
+        f"{label} p50 {t['p50_ms']:.3f} ms p99 {t['p99_ms']:.3f} ms max {t['max_ms']:.3f} ms (n={t['n']})"
+        for label, t in verbs["timed"].items()
+    )
     return (
-        f"verbs {NUM_NODES} nodes, NodeNames mode over a socket: filter p50 {f['p50_ms']:.3f} ms "
-        f"p99 {f['p99_ms']:.3f} ms max {f['max_ms']:.3f} ms (n={f['n']}), prioritize p50 "
-        f"{p['p50_ms']:.3f} ms p99 {p['p99_ms']:.3f} ms max {p['max_ms']:.3f} ms (n={p['n']}); "
+        f"verbs {NUM_NODES} nodes, NodeNames mode over a socket, native wire path: {runs}; "
         f"warm passes per churned refresh "
         f"({calls['batch_prioritize']} batched rankings, {calls['filter_explain']} filter_explain): "
         f"{refreshes}; first request after the refresh {verbs['first_ms']:.3f} ms; "
-        f"{verbs['requests']} requests equal to the CPU-mirror control, {verbs['host_checked']} to "
-        f"the host path, {verbs['promoted']} planned pods promoted, 0 host fallbacks, every timed "
-        f"span on the device path [{card}]"
+        f"{verbs['requests']} requests twice (paths: {verbs['mix_paths']}) equal to the CPU-mirror control with "
+        f"the extension off, {verbs['host_checked']} to the host path, {verbs['promoted']} planned pods promoted, "
+        f"every timed answer equal to the control, 0 host fallbacks [{card}]"
+    )
+
+
+def verbs_wire_line(verbs: dict, card: str) -> str:
+    """The partition counters each timed run moved and /debug/wire's
+    caches at the end; each native p99 beside the 20 ms target."""
+    moves = "; ".join(
+        f"{label}: " + ", ".join(f"{k} {v}" for k, v in sorted(m.items())) for label, m in verbs["moves"].items()
+    )
+    w = verbs["wire"]
+    target = ", ".join(
+        f"{label} {'met' if t['p99_ms'] <= VERB_P99_TARGET_MS else 'missed'} ({t['p99_ms']:.3f} ms)"
+        for label, t in verbs["timed"].items()
+        if t["native"]
+    )
+    return (
+        f"verbs wire: counters moved by each timed run: {moves}; /debug/wire {w['universes']} universes "
+        f"interned of {w['capacity']}, {w['filter_skeletons']} Filter and {w['prioritize_skeletons']} Prioritize "
+        f"skeletons, intern counters {w['counters']}; native p99 against the {VERB_P99_TARGET_MS:.0f} ms target "
+        f"(not held): {target} [{card}]"
     )
 
 
@@ -1022,15 +1190,16 @@ def verbs_tail_line(verbs: dict, card: str) -> str:
                 for r in timed["slowest"]
             )
         )
-    return f"verbs tail (the 3 slowest of {TIMED_REQUESTS} each, ms): {' | '.join(parts)} [{card}]"
+    return f"verbs tail (the 3 slowest of each timed run, ms): {' | '.join(parts)} [{card}]"
 
 
 def check_limits(verbs: dict, replan_ms) -> None:
-    """The end-to-end limits of PERF.md section 2."""
-    for verb, timed in verbs["timed"].items():
+    """The end-to-end limits of PERF.md section 2; the verbs' limit holds
+    the path that serves them (native), the exact runs are the comparison."""
+    for label, timed in verbs["timed"].items():
         check(
-            timed["p99_ms"] <= VERB_P99_LIMIT_MS,
-            f"{verb} p99 {timed['p99_ms']:.3f} ms is over its {VERB_P99_LIMIT_MS} ms limit",
+            not timed["native"] or timed["p99_ms"] <= VERB_P99_LIMIT_MS,
+            f"{label} p99 {timed['p99_ms']:.3f} ms is over its {VERB_P99_LIMIT_MS} ms limit",
         )
     for refresh in verbs["refreshes"]:
         warm = sum(refresh["warm_ms"])
@@ -1534,6 +1703,8 @@ def run_service(torch, np, device: str, faults: bool = True) -> dict:
                 full_collections.append({"start": t0, "end": time.perf_counter()})
 
     gc.callbacks.append(on_gc)
+    served = PathsServed()  # the service's verbs, by the path that served them
+    trace.SPAN_OBSERVERS.append(served)
     try:
         # 1. the three informers' initial syncs, from the assemble call
         informers = {
@@ -1784,6 +1955,12 @@ def run_service(torch, np, device: str, faults: bool = True) -> dict:
             split = {"cycles": len(cycles), "periods": len(periods), "replans": len(replans),
                      "refreshes": len(refreshes)}
             t_boundary = time.perf_counter()
+        trace.SPAN_OBSERVERS.remove(served)
+        out["paths"] = served.line()
+        check(
+            "prioritize native" in served.counts and any(k.startswith("filter native/") for k in served.counts),
+            f"service: the verbs did not go through the native wire path ({out['paths']})",
+        )
         check(
             calls - calls_at_start == everyone("violated_nodes") and out["launches"] == everyone("greedy_assign_cuda"),
             "service: a violated_nodes call or greedy_assign launch was not counted for its thread",
@@ -1803,6 +1980,8 @@ def run_service(torch, np, device: str, faults: bool = True) -> dict:
                 "faults: a verb fell back to the host",
             )
     finally:
+        if served in trace.SPAN_OBSERVERS:
+            trace.SPAN_OBSERVERS.remove(served)
         churn_stop.set()
         with busy:
             closing.set()
@@ -1895,7 +2074,7 @@ def service_lines(s: dict, card: str) -> list:
         f"CustomMetricsClient p50 {statistics.median(refresh):.3f} ms max {max(refresh):.3f} ms over "
         f"{len(refresh)}; live replan p50 {statistics.median(replan):.3f} ms over {len(replan)}, one "
         f"greedy_assign launch each, {s['launches']} in all; {s['requests']} verb responses equal to the "
-        f"CPU control [{card}]",
+        f"CPU control; the verbs' paths (span path/filter cache): {s['paths']} [{card}]",
         worst_cycle_line(s, card),
     ]
 
@@ -2064,6 +2243,8 @@ def run_faults(ctx) -> dict:
 
     # 2. the metrics-API outage
     spans = {}
+    served = PathsServed()  # the phase's verbs, by the path that served them
+    trace.SPAN_OBSERVERS.append(served)
     trace.SPAN_OBSERVERS.append(lambda span: spans.__setitem__(span.trace_id, span))
 
     def send_id(r, verb, body, rid):
@@ -2093,7 +2274,7 @@ def run_faults(ctx) -> dict:
                 break  # the window closed under the request
             check(got == pre[body, verb], f"faults: a last-known-good {verb} differs from the answer before the outage")
             if verb == "prioritize":
-                check(span.attrs.get("path") == "device" and span.attrs.get("degraded"),
+                check(span.attrs.get("path") == "native" and span.attrs.get("degraded"),
                       f"faults: a last-known-good Prioritize took path {span.attrs.get('path')}")
                 lkg += 1
         check(lkg > 0, "faults: no Prioritize was answered within the last-known-good window")
@@ -2230,7 +2411,9 @@ def run_faults(ctx) -> dict:
         check(not cycles_of(old.name, after=t_crash), "faults: the crashed replica kept enforcing")
     finally:
         trace.SPAN_OBSERVERS.pop()
+        trace.SPAN_OBSERVERS.remove(served)
         plan.clear()
+    out["paths"] = served.line()
     out["seconds"] = now() - b.t_assemble
     return out
 
@@ -2252,7 +2435,7 @@ def faults_lines(s: dict, card: str) -> list:
         f"{f['b_ready_s']:.3f} s after its assemble; one leader (replica-a), /debug/leader = each elector's "
         f"state, the follower's answers = the leader's, 0 follower patches [{card}]",
         f"faults metrics outage: /readyz degraded_mode after {f['to_degraded_s']:.3f} s, "
-        f"{f['lkg_requests']} Prioritize last-known-good answers = the pre-outage bytes on the device path, "
+        f"{f['lkg_requests']} Prioritize last-known-good answers = the pre-outage bytes on the native path, "
         f"neutral after {f['to_neutral_s']:.3f} s; neutral and fail-open bytes = the CPU twin's; "
         f"{FAULTS_TIMED_REQUESTS} requests each: {verbs}; {f['metrics_suspended_cycles']} suspended leader cycles, "
         f"0 patches; recovered in {f['recovery_s_replica-a']:.3f} s (A), {f['recovery_s_replica-b']:.3f} s (B); "
@@ -2271,6 +2454,8 @@ def faults_lines(s: dict, card: str) -> list:
         f"{overlap_s(worst, f['full_collections']) * 1e3:.3f} ms); violated_nodes calls = policies in every cycle, "
         f"on the card; greedy_assign "
         f"launches {f['launches']} ({launches}), one a solved replan; phase {f['seconds']:.3f} s [{card}]",
+        f"faults verbs' paths (span path/filter cache; degraded Filters bypass the cache, last-known-good "
+        f"Prioritize is native, neutral is neither): {f['paths']} [{card}]",
     ]
 
 
@@ -3029,6 +3214,14 @@ def main() -> int:
     ptxas = start_binpack_ptxas_report()
     libs = _build.build()
     print(f"build: {', '.join(sorted(libs))} in {time.perf_counter() - start:.3f} s")
+    from platform_aware_scheduling_tpu_torch import native
+
+    start = time.perf_counter()
+    check(
+        native.get_wirec() is not None,
+        "the wire extension _wirec_torch did not build or load (no C compiler, or PAS_TPU_NO_NATIVE=1)",
+    )
+    print(f"build: {native.so_path().name} (the verbs' wire extension, cc) in {time.perf_counter() - start:.3f} s")
     instances = binpack_ptxas_report(ptxas)
     print(
         "binpack instances (-Xptxas -v; G/cards a lane/resources in registers: registers, stack and spill "
@@ -3083,11 +3276,12 @@ def main() -> int:
 
     verbs = run_verbs(torch, np, main_path, "cuda")
     print(verbs_line(verbs, card))
+    print(verbs_wire_line(verbs, card))
     print(verbs_breakdown_line(verbs, card))
     print(verbs_tail_line(verbs, card))
     check_limits(verbs, replan_ms)
     print(
-        f"limits met: verb p99 <= {VERB_P99_LIMIT_MS} ms, warm passes <= {REFRESH_WARM_LIMIT_MS} ms "
+        f"limits met: native verb p99 <= {VERB_P99_LIMIT_MS} ms, warm passes <= {REFRESH_WARM_LIMIT_MS} ms "
         f"a refresh, replan p50 <= {REPLAN_P50_LIMIT_MS} ms"
     )
 

@@ -156,12 +156,11 @@ def assemble(
     controller.run(stop)
     enforcer.start_enforcing(cache, sync_period_s, stop=stop)
     if planner is not None:
-        planner_informers = planner.watch(kube_client)
-        planner_stop = planner.start(sync_period_s)
-        threading.Thread(
-            target=lambda: (stop.wait(), planner_informers.stop(), planner_stop.set()),
-            daemon=True,
-        ).start()
+        # the informers and the replan loop stop on the service's event
+        # itself: told by a thread waiting on it, an informer that took a
+        # watch event first would wait for one more before it saw the stop
+        planner.watch(kube_client, stop=stop)
+        planner.start(sync_period_s, stop=stop)
     return cache, mirror, extender, controller, enforcer, stop
 
 

@@ -12,13 +12,14 @@ with the routes and middleware of the reference extender:
     read-header and 10 s write timeouts;
   * the observability surface: ``/healthz``, ``/readyz``, ``/metrics``,
     ``/debug/traces``, ``/debug/decisions``, ``/debug/explain``,
-    ``/debug/leader`` (the elector's state, when one is wired) and the
-    ``/debug`` index.
+    ``/debug/leader`` (the elector's state, when one is wired),
+    ``/debug/wire`` (the wire path's caches, when the scheduler has a
+    device fastpath) and the ``/debug`` index.
 
 The JAX server's other ``/debug/*`` endpoints belong to planes the port
 does not have yet; each answers here exactly as the JAX server does with
 its plane off (:data:`PLANE_OFF`), as ``/debug/leader`` does with no
-elector wired.
+elector wired and ``/debug/wire`` with no fastpath.
 """
 
 from __future__ import annotations
@@ -84,6 +85,7 @@ DEBUG_ENDPOINTS = [
     {"path": "/debug/traces", "description": "recent + slowest request traces; filters: ?verb=<verb>&min_ms=<float>"},
     {"path": "/debug/decisions", "description": "scheduling decision provenance records; filters: ?pod=<name>&verb=<verb>&limit=<n> (404 when --decisionLog=off)"},
     {"path": "/debug/leader", "description": "leader-election state: role, lease holder, fencing token (404 when --leaderElect is off)"},
+    {"path": "/debug/wire", "description": "wire-path caches: interned node-name universes, intern hit/miss/eviction counts, response-skeleton keys (404 without a device fastpath)"},
     {"path": "/debug/explain", "description": "causal event spine: the ordered event chain + narrative for one entity; filters: ?pod=<ns/name>&gang=<id>&request_id=<id>&node=<name> (404 when --events=off)"},
 ]
 
@@ -406,6 +408,12 @@ class Server:
             leadership = getattr(self.scheduler, "leadership", None)
             if leadership is not None:
                 return HTTPResponse.json(leadership.to_json())
+        if bare_path == "/debug/wire" and request.method == "GET":
+            # the wire path's caches (tas/fastpath.wire_debug); without a
+            # device fastpath (host-only TAS, GAS) the 404 below answers
+            fastpath = getattr(self.scheduler, "fastpath", None)
+            if fastpath is not None:
+                return HTTPResponse.json(json.dumps(fastpath.wire_debug()).encode() + b"\n")
         if bare_path in PLANE_OFF:
             method, body = PLANE_OFF[bare_path]
             if request.method != method:

@@ -229,6 +229,30 @@ class Args:
                 node_names = fixed
         return cls(pod=pod, nodes=nodes, node_names=node_names)
 
+    @classmethod
+    def from_parsed(cls, parsed, node_names) -> "Args":
+        """Args from the native wire view of a NodeNames-mode request
+        (``_wirec_torch.ParsedArgs``) plus an already-materialized
+        candidate list, typically an interned universe's shared name
+        tuple, so a repeat request builds no per-name Python object.
+
+        The content equals :meth:`from_json`'s for every field the Filter
+        path reads (pod name and namespace, the ``telemetry-policy``
+        label, the candidate names): the scanner applies the same Go
+        decode rules and rejects (ValueError -> exact path) every body
+        where the two could differ.  Fields the wire view does not keep
+        (other pod labels, the pod spec) are absent."""
+        metadata: Dict[str, Any] = {}
+        if parsed.pod_name is not None:
+            metadata["name"] = parsed.pod_name
+        if parsed.pod_namespace is not None:
+            metadata["namespace"] = parsed.pod_namespace
+        label = parsed.policy_label
+        if label is not None:
+            metadata["labels"] = {"telemetry-policy": label}
+        pod = Pod({"metadata": metadata} if metadata else {})
+        return cls(pod=pod, nodes=None, node_names=node_names)
+
     def to_json(self) -> bytes:
         nodes = None
         if self.nodes is not None:

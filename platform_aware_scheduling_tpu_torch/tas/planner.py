@@ -312,10 +312,12 @@ class BatchPlanner:
 
     # -- pending-pod feed -------------------------------------------------------
 
-    def watch(self, kube_client) -> _InformerGroup:
+    def watch(self, kube_client, stop: Optional[threading.Event] = None) -> _InformerGroup:
         """Informers over pods (the pending set and the bound counts per
         node) and nodes (allocatable pod slots); returns a handle with
-        ``.stop()`` and ``.wait_for_cache_sync()``."""
+        ``.stop()`` and ``.wait_for_cache_sync()``.  ``stop``, when given,
+        is the event both informers stop on (a service's own), so they see
+        the service stop at once."""
 
         def on_event(pod: Pod) -> None:
             self.pod_observed(pod)
@@ -344,6 +346,7 @@ class BatchPlanner:
             on_add=on_event,
             on_update=lambda _old, new: on_event(new),
             on_delete=on_delete,
+            stop=stop,
         )
 
         def on_node_delete(obj) -> None:
@@ -361,6 +364,7 @@ class BatchPlanner:
             on_add=self.node_changed,
             on_update=lambda _old, new: self.node_changed(new),
             on_delete=on_node_delete,
+            stop=stop,
         )
         pod_informer.start()
         node_informer.start()
@@ -369,11 +373,11 @@ class BatchPlanner:
 
     # -- background loop -------------------------------------------------------
 
-    def start(self, period_seconds: float) -> threading.Event:
-        """Replan every ``period_seconds`` on a daemon thread until the
-        returned event is set; a failed replan is logged and retried on the
-        next tick."""
-        stop = threading.Event()
+    def start(self, period_seconds: float, stop: Optional[threading.Event] = None) -> threading.Event:
+        """Replan every ``period_seconds`` on a daemon thread until
+        ``stop`` (a new event when none is given) is set; returns the
+        event.  A failed replan is logged and retried on the next tick."""
+        stop = stop if stop is not None else threading.Event()
 
         def loop():
             while not stop.wait(period_seconds):

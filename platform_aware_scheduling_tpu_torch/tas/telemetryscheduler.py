@@ -25,6 +25,17 @@ Two execution paths give identical wire bytes:
     policies and metrics the mirror marks host-only, with no mirror at
     all, and as the control in tests.
 
+In front of both sits the native wire path, as in the JAX extender: with
+a mirror and the ``_wirec_torch`` extension (``native/``), Prioritize is
+scanned and encoded in C (``path`` ``native``, or ``native_host`` for a
+host-only policy; ``pas_prioritize_{native,native_host,exact}_total``
+partition the requests), and Filter is answered from the response cache
+or encoded in C (``pas_filter_cache_{hit,miss,bypass}_total`` partition
+them; a Nodes-mode miss builds its body on the exact flow and stores it).
+A body the scanner rejects, and every request while
+``PAS_TPU_NO_NATIVE=1`` or without a compiler, takes the exact flow, with
+the same bytes.
+
 The verbs keep the reference's contract that they never fail: device
 trouble falls back to the host path.  The fallback is never silent: each
 verb's span carries ``path`` (``device`` or ``host``), and a fallback
@@ -42,8 +53,10 @@ every replica serves the verbs alike.
 
 The JAX extender's other optional planes (shards, admission, gangs,
 forecasts, SLOs, control, flight recorder, solve observatory, rebalancer)
-and its native wire path are not ported yet; with them unset the JAX
-verbs answer with the same bytes as this module.
+are not ported yet; with them unset the JAX verbs answer with the same
+bytes as this module.  One difference is kept on purpose: the Filter
+response cache keys on the policy's name beside its violation set, since
+two policies with the same rules share the set but not the reasons.
 """
 
 from __future__ import annotations
@@ -60,6 +73,7 @@ from platform_aware_scheduling_tpu_torch.extender.types import (
     encode_host_priority_list,
 )
 from platform_aware_scheduling_tpu_torch.kube.objects import Node, Pod
+from platform_aware_scheduling_tpu_torch.native import get_wirec
 from platform_aware_scheduling_tpu_torch.ops.state import (
     CompiledPolicy,
     DeviceView,
@@ -74,6 +88,19 @@ from platform_aware_scheduling_tpu_torch.utils import decisions, events, klog, t
 from platform_aware_scheduling_tpu_torch.utils.tracing import LatencyRecorder
 
 TAS_POLICY_LABEL = "telemetry-policy"
+
+
+class _HostArgsShortcut:
+    """Probe result for a host-only-policy Filter whose candidate span is
+    interned: the exact flow runs on these Args, built from the wire view
+    and the universe's name tuple, instead of decoding the body again.
+    The Args hold every field the Filter path reads, so the bytes are the
+    exact path's."""
+
+    __slots__ = ("args",)
+
+    def __init__(self, args: Args):
+        self.args = args
 
 
 class MetricsExtender:
@@ -137,15 +164,22 @@ class MetricsExtender:
                 for compiled in policies.values()
                 if self._prioritize_device_eligible(compiled, host_only)
             }
-            filtered = {
-                name: compiled
-                for (_ns, name), compiled in policies.items()
-                if self._filter_device_eligible(compiled, host_only)
+            filter_ok = {
+                key: self._filter_device_eligible(compiled, host_only) for key, compiled in policies.items()
             }
-            fastpath.precompute(view, pairs, list(filtered.values()))
-            for name, compiled in filtered.items():
-                # the violation set is warm; this decodes its reasons
-                fastpath.violation_reasons(compiled, view, name)
+            wirec = get_wirec()
+            fastpath.precompute(view, pairs, [policies[key] for key, ok in filter_ok.items() if ok], wirec=wirec)
+            for (ns, name), compiled in policies.items():
+                if filter_ok[ns, name]:
+                    # the violation set is warm; this decodes its reasons
+                    fastpath.violation_reasons(compiled, view, name)
+                # every interned universe's bodies at the new state, so the
+                # first request of the period finds its body
+                fastpath.warm_skeletons(
+                    wirec, compiled, view, name,
+                    filter_ok=filter_ok[ns, name],
+                    prioritize_ok=self._prioritize_device_eligible(compiled, host_only),
+                )
             self._warmed = True
         except Exception as exc:  # warming must never break the writer
             self._warmed = False
@@ -198,6 +232,10 @@ class MetricsExtender:
                     return self._neutral_prioritize(request, span)
                 if action == degraded_mode.ACTION_LAST_KNOWN_GOOD:
                     span.set("degraded", reason)  # serving retained scores
+            # the native path counts itself (native or native_host)
+            response = self._prioritize_native(request)
+            if response is not None:
+                return response
             trace.COUNTERS.inc("pas_prioritize_exact_total")
             span.set("path", "exact")
             klog.v(2).info_s("Received prioritize request", component="extender")
@@ -270,12 +308,29 @@ class MetricsExtender:
                 if action in (degraded_mode.ACTION_FAIL_OPEN, degraded_mode.ACTION_FAIL_CLOSED):
                     degraded_action = action
                     span.set("degraded", reason)
-            # no response cache without the native wire path: every Filter
-            # takes the exact flow
-            span.set("filter_cache", "bypass")
-            trace.COUNTERS.inc("pas_filter_cache_bypass_total")
+            probe = None
+            if degraded_action is None:
+                # a degraded answer never comes from the cache (its entries
+                # were keyed on healthy state): the probe is skipped
+                with span.stage("cache_probe"):
+                    probe = self._filter_cache_probe(request)
+            # the probe counts hit and miss where it answers or hands back
+            # a key; every None (not cacheable, or trouble) is a bypass, so
+            # hit + miss + bypass count each request once
+            if isinstance(probe, HTTPResponse):
+                return probe
+            args_override = None
+            if isinstance(probe, _HostArgsShortcut):
+                # host-only policy over an interned span: the exact flow on
+                # Args from the wire view (still a bypass: the caches cannot
+                # serve host verdicts)
+                args_override = probe.args
+                probe = None
+            if probe is None:
+                span.set("filter_cache", "bypass")
+                trace.COUNTERS.inc("pas_filter_cache_bypass_total")
             with span.stage("decode"):
-                args = self._decode(request)
+                args = args_override if args_override is not None else self._decode(request)
             if args is None:
                 return HTTPResponse()
             with span.stage("kernel"):
@@ -287,6 +342,12 @@ class MetricsExtender:
             span.set("pod", pod_key)
             with span.stage("encode"):
                 body = result.to_json()
+            if probe is not None:
+                parsed, violations, policy_name, use_node_names, universe = probe
+                self.fastpath.filter_store(
+                    violations, policy_name, use_node_names, parsed, body, len(result.failed_nodes),
+                    universe=universe,
+                )
             path = str(span.attrs.get("filter_cache", "exact"))
             if decisions.DECISIONS.enabled:
                 record_path, reason_code = path, decisions.CODE_RULE_VIOLATION
@@ -317,6 +378,118 @@ class MetricsExtender:
         finally:
             self.recorder.observe("filter", time.perf_counter() - start, trace_id=span.trace_id)
 
+    def _filter_cache_probe(self, request: HTTPRequest):
+        """Filter response reuse: an HTTPResponse on a hit or a native
+        encode; a ``(parsed, violations, policy name, use_node_names,
+        universe)`` key when the request is cacheable but its body must
+        come from the exact flow (Nodes mode), which stores it; a
+        :class:`_HostArgsShortcut` for a host-only policy over an interned
+        span; None when the request is not cacheable (no mirror, no
+        extension, host-only policy, odd shapes) or on trouble.
+
+        The key pairs the request's raw candidate span (memcmp) or interned
+        universe with the identity of the policy's violation set and the
+        policy's name: any change of state that moves a verdict makes a new
+        set, so stale bytes never match."""
+        if self.fastpath is None:
+            return None
+        wirec = get_wirec()
+        if wirec is None:
+            return None
+        span = trace.of(request)
+        try:
+            parsed = wirec.parse_prioritize(request.body)
+            use_node_names = False
+            if not parsed.nodes_present or parsed.num_nodes == 0:
+                if self.node_cache_capable and parsed.node_names_present and parsed.num_node_names > 0:
+                    use_node_names = True
+                else:
+                    return None
+            policy_name = parsed.policy_label
+            if policy_name is None:
+                return None
+            try:
+                policy = self.cache.read_policy(parsed.pod_namespace or "", policy_name)
+            except CacheMissError:
+                return None
+            compiled, view = self._device_policy(policy)
+            if compiled is None or not self._device_filter_ok(compiled):
+                # host-only policy: the caches cannot serve a host verdict,
+                # but an interned span spares the exact flow its decode
+                return self._host_filter_shortcut(wirec, parsed, use_node_names, span)
+            explained = self.fastpath.violation_reasons(compiled, view, policy.name)
+            if explained is None:
+                return None
+            violations, reasons, _indexes = explained
+            with span.stage("intern"):
+                universe = self.fastpath.universe_probe(wirec, parsed, use_node_names)
+            candidates = parsed.num_node_names if use_node_names else parsed.num_nodes
+            cached = self.fastpath.filter_lookup(violations, policy.name, use_node_names, parsed, universe=universe)
+            if cached is not None:
+                body, n_failed = cached
+                span.set("filter_cache", "hit")
+                span.set("path", "native")
+                trace.COUNTERS.inc("pas_filter_cache_hit_total")
+                self._record_device_filter(span, parsed, policy_name, "cache_hit", candidates, n_failed, reasons)
+                return HTTPResponse.json(body)
+            if use_node_names:
+                # NodeNames miss: the body is built natively (row lookup,
+                # verdict split and assembly in C) and seeds the cache.  The
+                # miss counts only once the encode succeeded: a raise lands
+                # below as a bypass, never miss and bypass both
+                with span.stage("encode"):
+                    body, n_failed = self.fastpath.filter_parsed(
+                        wirec, compiled, view, parsed, violations, policy.name, universe=universe
+                    )
+                self.fastpath.filter_store(
+                    violations, policy.name, use_node_names, parsed, body, n_failed, universe=universe
+                )
+                span.set("filter_cache", "miss")
+                span.set("path", "native")
+                trace.COUNTERS.inc("pas_filter_cache_miss_total")
+                self._record_device_filter(span, parsed, policy_name, "native", candidates, n_failed, reasons)
+                return HTTPResponse.json(body)
+            # Nodes mode: the exact flow builds the body (it echoes the node
+            # objects) and stores it under this key
+            span.set("filter_cache", "miss")
+            trace.COUNTERS.inc("pas_filter_cache_miss_total")
+            return parsed, violations, policy.name, use_node_names, universe
+        except (ValueError, TypeError):
+            return None  # the scanner refused the body: the exact flow owns it
+        except Exception as exc:  # noqa: BLE001 — device trouble must never fail the verb
+            klog.error("filter cache probe failed, exact path: %s", exc)
+            return None
+
+    def _host_filter_shortcut(self, wirec, parsed, use_node_names: bool, span) -> Optional[_HostArgsShortcut]:
+        """Args for a host-only-policy Filter over an interned span, or
+        None (the exact decode serves).  Only NodeNames bodies qualify: a
+        Nodes-mode answer echoes node objects, which the wire view does
+        not keep."""
+        if not use_node_names:
+            return None
+        with span.stage("intern"):
+            universe = self.fastpath.universe_probe(wirec, parsed, use_node_names)
+        if universe is None:
+            return None
+        return _HostArgsShortcut(Args.from_parsed(parsed, universe.names()))
+
+    def _record_device_filter(self, span, parsed, policy_name, path, candidates, n_failed, reasons) -> None:
+        """The decision record of a native Filter answer, O(1): the
+        per-node detail is the shared per-state reason map."""
+        if not decisions.DECISIONS.enabled:
+            return
+        decisions.DECISIONS.record_filter(
+            request_id=span.trace_id,
+            pod_namespace=parsed.pod_namespace or "",
+            pod_name=parsed.pod_name or "",
+            policy=policy_name,
+            path=path,
+            candidates=int(candidates),
+            filtered=int(n_failed),
+            violating=reasons,
+            violating_scope="policy_state",
+        )
+
     def bind(self, request: HTTPRequest) -> HTTPResponse:
         """TAS does not bind: always 404.  The body (kube-scheduler POSTs
         BindingArgs regardless) is outcome feedback that closes the pod's
@@ -340,6 +513,109 @@ class MetricsExtender:
             except Exception:
                 pass  # feedback is best-effort; the verb stays a 404
         return HTTPResponse(status=404)
+
+    # -- native wire path ------------------------------------------------------
+
+    def _prioritize_native(self, request: HTTPRequest) -> Optional[HTTPResponse]:
+        """Prioritize through the wire extension's scanner when the body
+        has the usual well-formed shape; None hands it to the exact path,
+        which owns every decode-failure and empty-list quirk.  A ValueError
+        (decode, UTF-8, a lone surrogate the scan could not reject) or
+        TypeError anywhere on the way does the same."""
+        if self.fastpath is None:
+            return None
+        wirec = get_wirec()
+        if wirec is None:
+            return None
+        try:
+            return self._prioritize_native_inner(wirec, request)
+        except (ValueError, TypeError):
+            return None
+
+    def _prioritize_native_inner(self, wirec, request: HTTPRequest) -> Optional[HTTPResponse]:
+        span = trace.of(request)
+        with span.stage("decode"):
+            parsed = wirec.parse_prioritize(request.body)
+        use_node_names = False
+        if not parsed.nodes_present or parsed.num_nodes == 0:
+            if self.node_cache_capable and parsed.node_names_present and parsed.num_node_names > 0:
+                use_node_names = True
+            else:
+                return None  # the empty-200 quirks belong to the exact path
+        status = 200
+        policy_name = parsed.policy_label
+        if policy_name is None:
+            status = 400  # no label: 400, and still an (empty) answer
+            trace.COUNTERS.inc("pas_prioritize_native_total")
+            return HTTPResponse.json(encode_host_priority_list([]), status)
+        namespace = parsed.pod_namespace or ""
+        try:
+            policy = self.cache.read_policy(namespace, policy_name)
+        except CacheMissError:
+            trace.COUNTERS.inc("pas_prioritize_native_total")
+            return HTTPResponse.json(encode_host_priority_list([]), status)
+        rule = self._scheduling_rule(policy)
+        if rule is None:
+            trace.COUNTERS.inc("pas_prioritize_native_total")
+            return HTTPResponse.json(encode_host_priority_list([]), status)
+        pod = Pod({"metadata": {"name": parsed.pod_name or "", "namespace": namespace}})
+        pod_key = f"{namespace}/{parsed.pod_name or ''}"
+        span.set("pod", pod_key)
+        # the batch plan (the greedy kernel's) is promoted here, as on the
+        # exact path
+        planned = self.planner.planned_node(pod) if self.planner is not None else None
+        compiled, view = self._device_policy(policy)
+        candidates = parsed.num_node_names if use_node_names else parsed.num_nodes
+        with span.stage("intern"):
+            universe = self.fastpath.universe_probe(wirec, parsed, use_node_names)
+        if compiled is not None and self._device_prioritize_ok(compiled):
+            try:
+                body = self.fastpath.prioritize_parsed(
+                    wirec, compiled, view, parsed, planned, use_node_names, span=span, universe=universe
+                )
+                span.set("path", "native")
+                trace.COUNTERS.inc("pas_prioritize_native_total")
+                self._record_prioritize(
+                    span, namespace, parsed.pod_name or "", policy_name,
+                    "native", rule, int(candidates), planned, compiled=compiled, view=view,
+                )
+                events.JOURNAL.publish(
+                    "verdict",
+                    "prioritize",
+                    request_id=span.trace_id,
+                    pod=pod_key,
+                    data={"candidates": int(candidates), "path": "native"},
+                )
+                return HTTPResponse.json(body, status)
+            except Exception as exc:  # noqa: BLE001 — device trouble must never fail the verb
+                trace.COUNTERS.inc("pas_prioritize_host_fallback_total")
+                klog.error("native prioritize failed, host fallback: %s", exc)
+        # host-only policy or metric: exact host semantics over the parsed
+        # names, the universe's interned tuple when there is one
+        span.set("path", "native_host")
+        if universe is not None:
+            names = universe.names()
+        else:
+            names = parsed.node_names_list() if use_node_names else parsed.node_names()
+        with span.stage("kernel"):
+            result = self._apply_plan(pod, self._prioritize_host(rule, names))
+        with span.stage("encode"):
+            body = encode_host_priority_list(result)
+        # counted once the answer exists: a raise above goes to the exact
+        # path, which counts itself
+        trace.COUNTERS.inc("pas_prioritize_native_host_total")
+        self._record_prioritize(
+            span, namespace, parsed.pod_name or "", policy_name,
+            "native_host", rule, int(candidates), planned, result=result,
+        )
+        events.JOURNAL.publish(
+            "verdict",
+            "prioritize",
+            request_id=span.trace_id,
+            pod=pod_key,
+            data={"candidates": int(candidates), "path": "native_host"},
+        )
+        return HTTPResponse.json(body, status)
 
     def _record_prioritize(
         self,

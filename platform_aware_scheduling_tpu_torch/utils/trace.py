@@ -48,15 +48,31 @@ def declare(name: str, kind: str, help_text: str) -> None:
 
 
 declare("pas_request_duration_seconds", "histogram", "Verb/stage wall latency (labels: verb).")
-# path attribution (tas/telemetryscheduler.py); host_fallback counts
-# degradation EVENTS and overlaps the partition counter
+# path attribution (tas/telemetryscheduler.py, tas/fastpath.py).  The
+# three pas_prioritize_{native,native_host,exact}_total counters partition
+# Prioritize requests by the path that answered, and hit + miss + bypass
+# partition Filter requests; host_fallback counts degradation EVENTS and
+# overlaps the partitions
+declare("pas_prioritize_native_total", "counter", "Prioritize requests answered by the native wire path's device fastpath (incl. its trivial empty answers).")
+declare("pas_prioritize_native_host_total", "counter", "Prioritize requests on the native wire path answered with exact host semantics (host-only policy/metric, or after a device failure).")
 declare("pas_prioritize_exact_total", "counter", "Prioritize requests served by the exact Python path.")
 declare("pas_prioritize_host_fallback_total", "counter", "Device-path failures degraded to host semantics (events; overlaps the partition counters).")
 declare("pas_filter_host_fallback_total", "counter", "Filter device-path failures degraded to host semantics.")
+declare("pas_fastpath_response_hit_total", "counter", "Prioritize response-reuse cache hits (response skeleton or span memcmp).")
+declare("pas_fastpath_response_miss_total", "counter", "Prioritize response-reuse cache misses.")
 declare("pas_gas_filter_device_total", "counter", "GAS Filter requests served by the batched device bin-pack.")
 declare("pas_gas_filter_host_total", "counter", "GAS Filter requests served by the host loop.")
 declare("pas_gas_filter_device_error_total", "counter", "GAS Filter requests answered with an error because the device bin-pack failed.")
+declare("pas_filter_cache_hit_total", "counter", "Filter response cache hits.")
+declare("pas_filter_cache_miss_total", "counter", "Filter cacheable requests that missed the response cache.")
 declare("pas_filter_cache_bypass_total", "counter", "Filter requests not cacheable (host-only policy, odd shapes, no native scanner).")
+# interned node-name universes (native/wirec.c UniverseCache via
+# tas/fastpath.py): hits + misses partition every probe against an
+# available universe cache; evictions count universes dropped past the
+# MRU bound (PAS_TPU_UNIVERSE_CACHE)
+declare("pas_wire_intern_hits_total", "counter", "Candidate-span universe-cache hits (digest + memcmp-verified).")
+declare("pas_wire_intern_misses_total", "counter", "Candidate-span universe-cache misses (cold span, or first sighting before interning).")
+declare("pas_wire_intern_evictions_total", "counter", "Interned universes evicted past the MRU bound.")
 declare("pas_traces_recorded_total", "counter", "Completed spans recorded into the trace ring buffer.")
 declare("pas_ready", "gauge", "Composite readiness: 1 when every /readyz condition holds, else 0.")
 declare("pas_ready_transitions_total", "counter", "Readiness flips (ready <-> not ready) observed across /readyz evaluations.")

@@ -132,6 +132,27 @@ def test_service_packages_pull_in_no_jax(package):
     assert out.stdout.strip() == "[]", out.stdout
 
 
+def test_native_loader_pulls_in_no_jax():
+    """The wire extension's loader, built and loaded, in a fresh
+    interpreter: it is the port's own copy, and brings in neither JAX nor
+    the JAX package's ``native`` module."""
+    code = (
+        "import sys\n"
+        "from platform_aware_scheduling_tpu_torch.native import get_wirec\n"
+        "module = get_wirec()\n"
+        "print(module is not None and module.__name__, "
+        f"sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k not in ("PYTHONPATH", "PAS_TPU_NO_NATIVE")}
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO_ROOT, env=env, capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    loaded, forbidden = out.stdout.strip().split(" ", 1)
+    assert forbidden == "[]", out.stdout
+    assert loaded in ("_wirec_torch", "False")  # False only without a C compiler
+
+
 def test_no_source_imports_the_jax_package():
     offenders = []
     for path, _name in _port_modules():

@@ -72,8 +72,8 @@ def test_oversized_body_is_500():
 
 
 # the JAX server's answers with every optional plane off; /debug/wire is
-# its answer without a device fastpath (the wire caches come with the
-# native wire path)
+# its answer without a device fastpath (with one, it serves the wire
+# caches: tests/test_torch_wire_extender.py)
 PLANE_OFF_PATHS = sorted(set(server.PLANE_OFF) - {"/debug/profile"})
 
 
@@ -108,7 +108,8 @@ def test_debug_endpoints_and_index():
     get = lambda path: port_srv.route(server.HTTPRequest("GET", path, {}, b""))  # noqa: E731
     index = json.loads(get("/debug").body)["endpoints"]
     assert [e["path"] for e in index] == [
-        "/healthz", "/readyz", "/metrics", "/debug/traces", "/debug/decisions", "/debug/leader", "/debug/explain",
+        "/healthz", "/readyz", "/metrics", "/debug/traces", "/debug/decisions", "/debug/leader", "/debug/wire",
+        "/debug/explain",
     ]
     for entry in index:
         # no elector is wired here: /debug/leader answers its plane-off 404
