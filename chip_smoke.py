@@ -28,7 +28,14 @@ against a CPU-mirror twin and the host loop; each Filter that misses the
 fits cache launches the CUDA first-fit bin-pack kernel once (held exactly
 against its plain version on the card beforehand, on edge cases, random
 states and a state for every template instance, whose registers and stack
-``nvcc -Xptxas -v`` reports).  Prints the card, the timings (the greedy
+``nvcc -Xptxas -v`` reports).  Then the forecast phase assembles the TAS
+service with ``--forecast=on`` over the verbs phase's world and drives 40
+churned refresh passes, each launching the CUDA Holt forecast kernel once
+(held exactly against its plain version on edge cases beforehand, and on
+every pass), serves 500 native Prioritize requests ranked on the forecasts
+(each equal to a CPU twin's and the host path's) beside 500 ranked on the
+snapshot, and rides a metrics-API outage past the last-known-good window
+on extrapolated forecasts.  Prints the card, the timings (the greedy
 kernel's two stages and its rescans at the main path's inputs and three
 others; the verbs' p50/p99, their slowest requests' stages and the warm
 passes; the partition counters each timed run moved and the wire
@@ -67,6 +74,7 @@ FULL_NODE_SHARE = 0.10  # nodes whose 110 slots are all bound
 NEARLY_FULL_SHARE = 0.05  # nodes with 1-5 slots left
 CHURN = 0.3  # share of node values that move each sync period
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+VECTOR_OPS_PER_S = 67e12  # H100 SXM data sheet: float32 outside the tensor cores
 SEED = 0
 # the end-to-end limits of PERF.md section 2, held on the card
 VERB_P99_LIMIT_MS = 30.0
@@ -3193,6 +3201,615 @@ def check_gas_limits(g: dict) -> None:
           f"gas: Filter p99 {g['filter']['p99_ms']:.3f} ms over {VERB_P99_LIMIT_MS} ms")
 
 
+# -- the forecast phase --------------------------------------------------------------
+
+FORECAST_WINDOW = 32  # --forecastWindow's default
+FORECAST_PASSES = 40  # churned refresh passes: more than the window, so every ring wraps
+FORECAST_CALM_PASSES = FORECAST_WINDOW  # calm passes that flush the churn before the outage
+FORECAST_RAMP_SHARE = 0.10  # nodes that ramp up, and as many that ramp down
+FORECAST_RAMP_MILLI = 300  # benchmarks/forecast_load.py's riser slope
+FORECAST_TIMED_REQUESTS = 500
+FORECAST_DEGRADED_REQUESTS = 20
+FORECAST_FLAGS = ["--forecast=on", "--degradedMode=last-known-good", "--batchPlanner", "--nodeCacheCapable"]
+
+
+def forecast_parity_cases(np):
+    """(label, values int32 [M, N, W], valid bool [M, N, W]) cases the
+    kernel must match the plain version on, bit for bit: nothing valid,
+    W = 1 and 64, ragged series with gaps, constant series, values at
+    +-2^30 and at INT32_MIN, and random histories like the JAX package's
+    parity test (values in +-2^30, 70% valid)."""
+    rng = np.random.default_rng(SEED + 4)
+    i32min = np.iinfo(np.int32).min
+    cases = [(f"all invalid W={w}", np.full((2, 5, w), 7, np.int32), np.zeros((2, 5, w), bool)) for w in (1, 32)]
+    cases.append(("W=1", rng.integers(-(2**30), 2**30, size=(3, 300, 1)).astype(np.int32), np.ones((3, 300, 1), bool)))
+    cases.append(
+        ("W=64", rng.integers(-(2**30), 2**30, size=(3, 300, 64)).astype(np.int32), rng.random((3, 300, 64)) < 0.8)
+    )
+    ragged = np.zeros((4, 257, 32), bool)
+    for n in range(257):
+        ragged[:, n, 32 - (n % 33):] = True
+    ragged[1, ::3, 20] = False
+    cases.append(("ragged", rng.integers(-5000, 5000, size=(4, 257, 32)).astype(np.int32), ragged))
+    cases.append(("constant", np.full((2, 300, 32), 54321, np.int32), np.ones((2, 300, 32), bool)))
+    ceiling = (rng.integers(0, 2, size=(2, 300, 32)) * (2**31 - 2) - (2**30 - 1)).astype(np.int32)
+    cases.append(("+-2^30", ceiling, np.ones((2, 300, 32), bool)))
+    extremes = np.array([i32min, 2**31 - 1, i32min, -(2**30), 2**30, i32min, 0, 2**31 - 1], np.int32)
+    cases.append(("INT32_MIN", np.tile(extremes, (2, 300, 4)), rng.random((2, 300, 32)) < 0.9))
+    for k in range(8):
+        m, n, w = int(rng.integers(1, 9)), int(rng.integers(1, 2000)), int(rng.integers(1, 41))
+        values = rng.integers(-(2**30), 2**30, size=(m, n, w)).astype(np.int32)
+        cases.append((f"random {k}", values, rng.random((m, n, w)) < 0.7))
+    return cases
+
+
+def run_forecast_parity(torch, np) -> int:
+    """Each case at horizons 0, 1, W and 2W + 1 through the kernel on the
+    card and the plain version on the CPU; returns the max |difference|."""
+    from platform_aware_scheduling_tpu_torch.ops.cuda_forecast import forecast_cuda
+    from platform_aware_scheduling_tpu_torch.ops.forecast import forecast_reference
+
+    launches = forecast_cuda.LAUNCHES
+    worst = 0
+    cases = forecast_parity_cases(np)
+    for label, values, valid in cases:
+        w = values.shape[2]
+        host_values, host_valid = torch.from_numpy(values), torch.from_numpy(valid)
+        dev_values, dev_valid = host_values.cuda(), host_valid.cuda()
+        for horizon in (0, 1, w, 2 * w + 1):
+            got = forecast_cuda(dev_values, dev_valid, horizon).cpu()
+            want = forecast_reference(host_values, host_valid, horizon)
+            for name, g, x in zip(want._fields, got, want):
+                worst = max(worst, int((g.to(torch.int64) - x.to(torch.int64)).abs().max()) if g.numel() else 0)
+                check(g.dtype == torch.int32 and torch.equal(g, x), f"forecast parity {label} h={horizon}: {name} differs")
+    forecast_cuda.LAUNCHES = launches  # parity launches are not the main path's
+    print(f"forecast parity: {len(cases)} cases x 4 horizons exact on the card (max |diff| {worst})")
+    return worst
+
+
+class DrivenMetrics:
+    """The phase's metrics API: serves ``store`` to the smoke run's own
+    thread, which drives every refresh pass with the cache's
+    ``update_all_metrics`` (what the service's refresh loop calls each sync
+    period).  The loop's own thread is held at its first fetch until the
+    phase ends, so each pass is one call of the smoke run's; ``outage``
+    fails every fetch, as an unreachable metrics API does."""
+
+    def __init__(self, pass_thread: int, store: dict, released):
+        self.pass_thread = pass_thread
+        self.store = store
+        self.released = released
+        self.outage = False
+        self.held = False  # the loop's thread waits at its fetch
+
+    def get_node_metric(self, metric_name: str):
+        import threading
+
+        from platform_aware_scheduling_tpu_torch.tas.metrics import MetricsError
+
+        if threading.get_ident() != self.pass_thread:
+            self.held = True
+            self.released.wait()
+            raise MetricsError("the smoke run drives the refresh passes")
+        if self.outage:
+            raise MetricsError(f"metrics API unavailable: no metric {metric_name} fetched")
+        return dict(self.store[metric_name])
+
+
+def forecast_world(kube) -> list:
+    """The verbs phase's world in the fake API server: 10,000 nodes with
+    ``pods: 110``, the 4 policies as TASPolicy objects, 1,000 pending
+    labelled pods for the planner."""
+    from platform_aware_scheduling_tpu_torch.testing.builders import make_policy
+
+    nodes = [f"node-{i:05d}" for i in range(NUM_NODES)]
+    for name in nodes:
+        kube.add_node(
+            {"metadata": {"name": name, "labels": {}}, "status": {"allocatable": {"pods": str(ALLOCATABLE_PODS)}}}
+        )
+    for i in range(NUM_PODS):
+        kube.add_pod(
+            {
+                "metadata": {"name": f"pending-{i}", "namespace": "default", "uid": f"uid-pending-{i}",
+                             "labels": {"telemetry-policy": f"pol-{i % 4}"}},
+                "spec": {"containers": [{"name": "c"}]},
+                "status": {"phase": "Pending"},
+            }
+        )
+    for name, strategies in policies(rule).items():
+        kube.create_taspolicy(make_policy(name, strategies=strategies))
+    return nodes
+
+
+def run_forecast(torch, np, device: str) -> dict:
+    """The TAS service with ``--forecast=on`` as ``cmd/tas.main`` wires it:
+    ``assemble`` with the forecast options of the flags (window 32, the
+    horizon one sync period, band bound 0.25), the planner and
+    last-known-good degraded mode on ``device``, over the verbs phase's
+    world in the fake API server, served by ``build_server`` on 127.0.0.1;
+    beside it a twin assembly on the CPU.  Both forecasters run on one
+    fake clock that moves one sync period a pass.  40 refresh passes (10%
+    of the nodes ramp up 300 milli-units a pass, 10% down, the rest churn
+    30%), each holding one forecast launch, one fit pass and the fit equal
+    to the plain version over the same staged history; then 500 native
+    Prioritize requests ranked on the forecasts, each equal to the twin's
+    and to the host path's with the extension off, beside 500 ranked on
+    the snapshot; then 32 calm passes, their refits overlapped by
+    forecast-ranked Prioritize sent back to back from a second thread and
+    connection (timed, no limit held), and a metrics-API outage past the
+    cut last-known-good window, served by extrapolation until the horizon
+    passes the window.  The refit's stages are the card's forecaster's own
+    timers (``Forecaster.refit_stages_ms``), read after each pass."""
+    import http.client
+    import threading
+
+    from platform_aware_scheduling_tpu_torch.cmd import common, tas
+    from platform_aware_scheduling_tpu_torch.extender.server import HTTPRequest, Server
+    from platform_aware_scheduling_tpu_torch.ops.cuda_forecast import forecast_cuda
+    from platform_aware_scheduling_tpu_torch.ops.forecast import forecast_reference
+    from platform_aware_scheduling_tpu_torch.ops.state import build_history_tensor
+    from platform_aware_scheduling_tpu_torch.tas.metrics import NodeMetric
+    from platform_aware_scheduling_tpu_torch.tas.telemetryscheduler import MetricsExtender
+    from platform_aware_scheduling_tpu_torch.testing.fake_kube import FakeKubeClient
+    from platform_aware_scheduling_tpu_torch.testing.faults import FakeClock
+    from platform_aware_scheduling_tpu_torch.utils import trace
+    from platform_aware_scheduling_tpu_torch.utils.quantity import Quantity
+    from platform_aware_scheduling_tpu_torch.utils.tracing import CounterSet
+
+    out = {}
+    period = SERVICE_SYNC_PERIOD_S
+    rng = np.random.default_rng(SEED + 3)
+    kube = FakeKubeClient()
+    start = time.perf_counter()
+    nodes = forecast_world(kube)
+    values = rng.integers(0, 100_000, size=(NUM_METRICS, NUM_NODES))
+    order = rng.permutation(NUM_NODES)
+    ramp = int(NUM_NODES * FORECAST_RAMP_SHARE)
+    step = np.zeros(NUM_NODES, dtype=np.int64)
+    step[order[:ramp]] = FORECAST_RAMP_MILLI
+    step[order[ramp : 2 * ramp]] = -FORECAST_RAMP_MILLI
+    churners = np.ones(NUM_NODES, dtype=bool)
+    churners[order[: 2 * ramp]] = False
+    store = {}
+
+    def publish():
+        for j, metric in enumerate(METRIC_NAMES):
+            store[metric] = {n: NodeMetric(value=Quantity(f"{int(v)}m")) for n, v in zip(nodes, values[j].tolist())}
+
+    def advance(churn: bool):
+        values[...] += step[None, :]
+        if churn:
+            moved = (rng.random(values.shape) < CHURN) & churners[None, :]
+            values[...] = np.where(moved, rng.integers(0, 100_000, size=values.shape), values)
+        publish()
+
+    publish()
+    released = threading.Event()
+    clock = FakeClock()
+    args = tas.build_arg_parser().parse_args([*FORECAST_FLAGS, f"--syncPeriod={period:g}s"])
+    assemblies = {}
+    for side, dev in (("dut", device), ("twin", "cpu")):
+        options = common.forecast_options(args, period)
+        options["clock"] = clock
+        if side == "twin":
+            options["counters"] = CounterSet()  # the process counters count the card's service alone
+        client = DrivenMetrics(threading.get_ident(), store, released)
+        cache, mirror, ext, _controller, _enforcer, stop = tas.assemble(
+            kube,
+            client,
+            period,
+            enable_batch_planner=args.batchPlanner and side == "dut",
+            node_cache_capable=args.nodeCacheCapable,
+            degraded_mode=args.degradedMode,
+            forecast_options=options,
+            device=dev,
+        )
+        ext.degraded.lkg_max_age_s = LKG_MAX_AGE_S
+        assemblies[side] = SimpleNamespace(
+            cache=cache, mirror=mirror, ext=ext, fc=ext.forecaster, stop=stop, client=client
+        )
+    dut, twin = assemblies["dut"], assemblies["twin"]
+    released_loops = threading.Event()
+    ended = []
+
+    def loop_ended():
+        """The last hook of a pass: one made by a held loop, after release."""
+        if threading.get_ident() != dut.client.pass_thread:
+            ended.append(1)
+            if len(ended) == len(assemblies):
+                released_loops.set()
+
+    server = tas.build_server(dut.ext)
+    conns = []
+    try:
+        check(dut.fc is not None and dut.ext.degraded.forecaster is dut.fc, "forecast: the assembly wired no forecaster")
+        check(dut.fc.window == FORECAST_WINDOW, f"forecast: window {dut.fc.window}")
+        check(dut.mirror.device.type == device, f"forecast: the mirror is not on {device}")
+        hooks = dut.cache.on_refresh_pass
+        check(
+            hooks.index(dut.fc.refresh) < hooks.index(dut.ext.warm_forecast_rankings),
+            "forecast: the ranking warm does not follow the refit on the refresh-pass hook",
+        )
+        for side in assemblies.values():
+            wait_for(
+                lambda s=side: len(s.cache.registered_metric_names()) == NUM_METRICS
+                and all(s.mirror.policy("default", f"pol-{k}") is not None for k in range(4)),
+                60,
+                "the policies through the CRD informer",
+            )
+            # the loop's first pass runs at once: it is held at its first
+            # fetch, or it found no metric yet and its refit has ended
+            wait_for(
+                lambda s=side: s.client.held
+                or (s.fc.ensure_current() is not None and s.fc.ensure_current().generation == s.cache.history_generation()),
+                60,
+                "the refresh loop's first pass",
+            )
+            side.cache.on_refresh_pass.append(loop_ended)
+        out["setup_s"] = time.perf_counter() - start
+
+        # each hook of the card's pass, timed where it runs: (start, end)
+        refit_spans, warm_spans = [], []
+
+        def timed(fn, into):
+            def wrapper():
+                t0 = time.perf_counter()
+                fn()
+                into.append((t0, time.perf_counter()))
+
+            return wrapper
+
+        def span_ms(spans):
+            return [(b - a) * 1e3 for a, b in spans]
+
+        hooks[hooks.index(dut.fc.refresh)] = timed(dut.fc.refresh, refit_spans)
+        hooks[hooks.index(dut.ext.warm_forecast_rankings)] = timed(dut.ext.warm_forecast_rankings, warm_spans)
+
+        def drive(sides, churn=True, outage=False):
+            clock.advance(period)
+            if not outage:
+                advance(churn)
+            for side in sides:
+                side.client.outage = outage
+                side.cache.update_all_metrics(side.client)
+
+        server.start_server(port="0", unsafe=True, host="127.0.0.1", block=False)
+        check(server.wait_ready(), "forecast: the extender server did not start")
+        # one connection a stretch of requests: the server closes an idle
+        # one, as across the outage's wait
+
+        def connect():
+            for old in conns:
+                old.close()
+            conns[:] = [http.client.HTTPConnection("127.0.0.1", server.port, timeout=120)]
+
+        def send(method, path, body=b"", request_id=None):
+            headers = {"Content-Type": "application/json"} if method == "POST" else {}
+            if request_id is not None:
+                headers["X-Request-ID"] = request_id
+            t0 = time.perf_counter()
+            conns[0].request(method, path, body=body, headers=headers)
+            resp = conns[0].getresponse()
+            data = resp.read()
+            return resp.status, data, time.perf_counter() - t0
+
+        # -- 40 churned passes, each held against the plain version --------------------
+        forecast_cuda.LAUNCHES = 0
+        fits = trace.COUNTERS.get("pas_forecast_fit_passes_total")
+        out["max_abs_err"] = 0
+        stages = []  # the card's refit stages, a pass each
+        for p in range(FORECAST_PASSES):
+            launches = forecast_cuda.LAUNCHES
+            drive(assemblies.values())
+            stages.append(dict(dut.fc.refit_stages_ms))
+            if device == "cuda":
+                check(forecast_cuda.LAUNCHES - launches == 1,
+                      f"forecast pass {p}: {forecast_cuda.LAUNCHES - launches} kernel launches")
+            check(trace.COUNTERS.get("pas_forecast_fit_passes_total") - fits == p + 1,
+                  f"forecast pass {p}: pas_forecast_fit_passes_total did not move by one")
+            fit, twin_fit = dut.fc.ensure_current(), twin.fc.ensure_current()
+            check(fit.generation == dut.cache.history_generation(), f"forecast pass {p}: the fit is not current")
+            staged = build_history_tensor(fit.view, dut.cache.history_snapshot()[1], dut.fc.window)
+            want = forecast_reference(
+                torch.from_numpy(staged.values), torch.from_numpy(staged.valid), fit.horizon_steps
+            )
+            for name, got, x, t in zip(want._fields, fit.scaled, want, twin_fit.scaled):
+                check(torch.equal(got, x), f"forecast pass {p}: the kernel's {name} differs from the plain version")
+                check(torch.equal(got, t), f"forecast pass {p}: {name} differs from the CPU twin's")
+                out["max_abs_err"] = max(out["max_abs_err"], int((got.long() - x.long()).abs().max()))
+            check(np.array_equal(fit.predicted, twin_fit.predicted), f"forecast pass {p}: predictions differ")
+        out["churn_refit_ms"] = span_ms(refit_spans)
+        out["churn_warm_ms"] = span_ms(warm_spans)
+        # the split of the refits with full rings, each timed inside the refit
+        out["split"] = {k: statistics.median(st[k] for st in stages[FORECAST_WINDOW - 1 :]) for k in stages[0]}
+        out["churn_extrapolation"] = dut.fc.extrapolation_ok()
+        view = dut.mirror.device_view()
+        out["staging_shape"] = [view.values.shape[0], view.node_capacity, dut.fc.window]
+
+        # -- serving: native Prioritize ranked on the forecasts ---------------------------
+        serve_start = time.perf_counter()
+        connect()
+        host_ext = MetricsExtender(twin.cache, node_cache_capable=True)  # the host path, on the twin's forecasts
+        host_ext.forecaster = twin.fc
+        twin_server, host_server = Server(twin.ext), Server(host_ext)
+        pods = [(f"pol-{k}", f"forecast-probe-{k}-{j}") for k in range(4) for j in range(2)]
+        bodies = [args_body(pod, policy, nodes) for policy, pod in pods]
+        check(dut.ext.readiness_conditions()[0][1]() == (True, "fastpath warmed"), "forecast: not warmed")
+
+        def answer(srv, body):
+            with native_off() if srv is host_server else contextlib.nullcontext():
+                r = srv.route(HTTPRequest("POST", "/scheduler/prioritize", {"Content-Type": "application/json"}, body))
+            return r.status, r.body
+
+        wants = {}
+        for body in bodies:
+            status, data, _s = send("POST", "/scheduler/prioritize", body)
+            wants[body] = (status, data)
+            check(status == 200, f"forecast: Prioritize answered {status}")
+            check(answer(twin_server, body) == (status, data), "forecast: Prioritize differs from the CPU twin's")
+            check(answer(host_server, body) == (status, data), "forecast: Prioritize differs from the host path's")
+        spans = []
+        trace.SPAN_OBSERVERS.append(spans.append)
+        timed_runs, differs = {}, set()
+        try:
+            # four blocks, forecast / snapshot / snapshot / forecast, so
+            # neither ranking always runs first
+            block = FORECAST_TIMED_REQUESTS // 2
+            times = {"forecast": [], "snapshot": []}
+            pauses = {"forecast": [], "snapshot": []}
+            for k, label in enumerate(("forecast", "snapshot", "snapshot", "forecast")):
+                forecaster = dut.fc if label == "forecast" else None
+                dut.ext.forecaster = forecaster  # the snapshot blocks: --forecast=off's ranking
+                for body in bodies + bodies:  # warm-up: intern the lists, seed the caches
+                    send("POST", "/scheduler/prioritize", body)
+                spans.clear()
+                before = trace.COUNTERS.get("pas_prioritize_native_total")
+                with collections() as collected:
+                    for i in range(block):
+                        body = bodies[i % len(bodies)]
+                        status, data, s = send("POST", "/scheduler/prioritize", body, request_id=f"{label}-{k}-{i}")
+                        times[label].append(s * 1e3)
+                        if label == "forecast":
+                            check((status, data) == wants[body], f"forecast request {i}: the body changed")
+                        elif (status, data) != wants[body]:
+                            differs.add(body)
+                pauses[label] += full(collected)
+                moved = trace.COUNTERS.get("pas_prioritize_native_total") - before
+                check(moved == block, f"forecast {label}: pas_prioritize_native_total moved {moved}")
+                mine = [sp for sp in spans if sp.attrs.get("verb") == "prioritize"]
+                check(len(mine) == block, f"forecast {label}: {len(mine)} spans")
+                check(all(sp.attrs.get("path") == "native" for sp in mine), f"forecast {label}: a request left the native path")
+                rankings = {sp.attrs.get("ranking") for sp in mine}
+                check(rankings == ({"forecast"} if forecaster else {None}), f"forecast {label}: span rankings {rankings}")
+            for label, ms in times.items():
+                timed_runs[label] = {
+                    "p50_ms": percentile(ms, 0.5), "p99_ms": percentile(ms, 0.99), "max_ms": max(ms),
+                    "n": len(ms), "gc_ms": pauses[label],
+                }
+        finally:
+            trace.SPAN_OBSERVERS.remove(spans.append)
+            dut.ext.forecaster = dut.fc
+        check(len(differs) >= 1, "forecast: no body differs from the snapshot ranking of the same request")
+        out["timed"], out["differs"] = timed_runs, len(differs)
+        out["serve_s"] = time.perf_counter() - serve_start
+        check(dut.ext.degraded.prioritize_decision()[0] == "normal", "forecast: telemetry went stale while serving")
+        status, data, _s = send("GET", "/debug/forecast")
+        check(status == 200, f"forecast: /debug/forecast answered {status}")
+        debug = json.loads(data)
+        check(sorted(debug["metrics"]) == sorted(METRIC_NAMES), f"forecast: /debug/forecast names {sorted(debug['metrics'])}")
+
+        # -- calm passes, each overlapped by forecast-ranked Prioritize -----------------
+        # a second connection sends requests back to back from its own
+        # thread while this one drives the passes, as kube-scheduler does
+        # while the refresh loop refits
+        overlap, client_errors = [], []
+        passes_done = threading.Event()
+
+        def client():
+            conn = http.client.HTTPConnection("127.0.0.1", server.port, timeout=120)
+            try:
+                i = 0
+                while not passes_done.is_set():
+                    t0 = time.perf_counter()
+                    conn.request("POST", "/scheduler/prioritize", body=bodies[i % len(bodies)],
+                                 headers={"Content-Type": "application/json"})
+                    resp = conn.getresponse()
+                    resp.read()
+                    overlap.append((t0, time.perf_counter()))
+                    if resp.status != 200:
+                        client_errors.append(f"Prioritize answered {resp.status}")
+                    i += 1
+            except Exception as exc:  # noqa: BLE001 — reported below, the phase fails
+                client_errors.append(repr(exc))
+            finally:
+                conn.close()
+
+        calm_refits = len(refit_spans)
+        spans.clear()
+        trace.SPAN_OBSERVERS.append(spans.append)
+        sender = threading.Thread(target=client, name="forecast-overlap-client", daemon=True)
+        try:
+            sender.start()
+            while not overlap and sender.is_alive():
+                time.sleep(0.01)
+            for _p in range(FORECAST_CALM_PASSES):
+                launches = forecast_cuda.LAUNCHES
+                drive([dut], churn=False)
+                if device == "cuda":
+                    check(forecast_cuda.LAUNCHES - launches == 1, "forecast: a calm pass did not launch the kernel once")
+        finally:
+            passes_done.set()
+            sender.join(120)
+            trace.SPAN_OBSERVERS.remove(spans.append)
+        check(not client_errors, f"forecast overlap: {client_errors[:3]}")
+        rankings = {sp.attrs.get("ranking") for sp in spans if sp.attrs.get("verb") == "prioritize"}
+        check(rankings == {"forecast"}, f"forecast overlap: span rankings {rankings}")
+        refits = refit_spans[calm_refits:]
+        during = [(b - a) * 1e3 for a, b in overlap if any(a < r1 and b > r0 for r0, r1 in refits)]
+        check(during, "forecast overlap: no request overlapped a refit")
+        every = [(b - a) * 1e3 for a, b in overlap]
+        out["overlap"] = {
+            "refit_p50_ms": statistics.median(span_ms(refits)),
+            "n": len(every), "p50_ms": percentile(every, 0.5), "p99_ms": percentile(every, 0.99),
+            "max_ms": max(every), "during_n": len(during), "during_p50_ms": percentile(during, 0.5),
+            "during_p99_ms": percentile(during, 0.99), "during_max_ms": max(during),
+        }
+        out["calm_extrapolation"] = dut.fc.extrapolation_ok()
+
+        # -- then an outage past the last-known-good window -------------------------------
+        serves = trace.COUNTERS.get("pas_forecast_extrapolated_serves_total")
+        outage_start = time.perf_counter()
+        outage_passes = 0
+        while max(age for age in dut.cache.metric_ages().values()) <= LKG_MAX_AGE_S + 0.5:
+            drive([dut], outage=True)
+            outage_passes += 1
+            time.sleep(1.0)
+        out["outage_passes"] = outage_passes
+        connect()
+        spans.clear()
+        trace.SPAN_OBSERVERS.append(spans.append)
+        try:
+            for i in range(FORECAST_DEGRADED_REQUESTS):
+                status, _data, _s = send("POST", "/scheduler/prioritize", bodies[i % len(bodies)])
+                check(status == 200, f"forecast outage: Prioritize answered {status}")
+            mine = [sp for sp in spans if sp.attrs.get("verb") == "prioritize"]
+            check(len(mine) == FORECAST_DEGRADED_REQUESTS, f"forecast outage: {len(mine)} spans")
+            for sp in mine:
+                check("extrapolating" in str(sp.attrs.get("degraded", "")),
+                      f"forecast outage: a request was not served by extrapolation ({sp.attrs.get('degraded')})")
+                check(sp.attrs.get("path") == "native" and sp.attrs.get("ranking") == "forecast",
+                      f"forecast outage: a request took path {sp.attrs.get('path')} ranking {sp.attrs.get('ranking')}")
+            moved = trace.COUNTERS.get("pas_forecast_extrapolated_serves_total") - serves
+            check(moved >= FORECAST_DEGRADED_REQUESTS, f"forecast outage: pas_forecast_extrapolated_serves_total moved {moved}")
+            out["extrapolated_serves"] = moved
+            out["outage_extrapolation"] = dut.fc.extrapolation_ok()
+            # past the window's reach the horizon cap trips: neutral Prioritize
+            clock.advance(period * (dut.fc.window + 1))
+            spans.clear()
+            status, data, _s = send("POST", "/scheduler/prioritize", bodies[0])
+            sp = [s for s in spans if s.attrs.get("verb") == "prioritize"][-1]
+            check(sp.attrs.get("path") == "neutral" and all(e["Score"] == 0 for e in json.loads(data)),
+                  "forecast outage: past the horizon cap Prioritize is not neutral")
+            out["capped_extrapolation"] = dut.fc.extrapolation_ok()
+            out["outage_s"] = time.perf_counter() - outage_start
+            drive([dut], churn=False)  # the metrics API is back: one good pass
+            spans.clear()
+            send("POST", "/scheduler/prioritize", bodies[0])
+            sp = [s for s in spans if s.attrs.get("verb") == "prioritize"][-1]
+            check(sp.attrs.get("ranking") == "forecast" and "degraded" not in sp.attrs,
+                  "forecast: Prioritize did not recover after the outage")
+        finally:
+            trace.SPAN_OBSERVERS.remove(spans.append)
+        out["launches"] = forecast_cuda.LAUNCHES
+        out["fit_passes"] = trace.COUNTERS.get("pas_forecast_fit_passes_total") - fits
+        out["refit_ms"] = span_ms(refit_spans)
+        if device == "cuda":
+            out["times"] = time_forecast(torch, dut.fc)
+    finally:
+        for conn in conns:
+            conn.close()
+        server.shutdown()
+        for side in assemblies.values():
+            side.stop.set()
+        released.set()  # the held loops raise, end their pass and stop
+        released_loops.wait(60)
+    return out
+
+
+def time_forecast(torch, fc) -> dict:
+    """The kernel's times on the main path's staged history, beside the
+    plain version's and the least time the card could take for this
+    history: the bytes the function must move over the card's memory rate
+    (valid read once for every slot, values once where valid is set, six
+    int32 planes written once; the padding columns are never valid), or
+    its operations (a test a slot, ~10 integer operations a valid sample,
+    a tail of 8 a series) over the table's non-tensor-core rate, the
+    larger of the two.  ``ms`` is the kernel's
+    device time (:func:`graph_ms`, 50 calls in one CUDA graph),
+    ``call_ms`` wrapper calls back to back, ``profiler_ms``
+    ``torch.profiler``'s reading."""
+    from platform_aware_scheduling_tpu_torch.ops.cuda_forecast import forecast_cuda
+    from platform_aware_scheduling_tpu_torch.ops.forecast import forecast_reference
+    from platform_aware_scheduling_tpu_torch.ops.state import build_history_tensor
+
+    tensor = build_history_tensor(fc.mirror.device_view(), fc.cache.history_snapshot()[1], fc.window)
+    values = torch.from_numpy(tensor.values).cuda()
+    valid = torch.from_numpy(tensor.valid).cuda()
+    m, n, w = values.shape
+    samples = int(valid.sum())
+    bytes_needed = valid.numel() + 4 * samples + 6 * 4 * m * n
+    operations = valid.numel() + 10 * samples + 8 * m * n
+    bytes_ms = bytes_needed / HBM_BYTES_PER_S * 1e3
+    operations_ms = operations / VECTOR_OPS_PER_S * 1e3
+    launches = forecast_cuda.LAUNCHES
+    call = lambda: forecast_cuda(values, valid, 1)  # noqa: E731
+    device_ms = graph_ms(torch, call, 50)
+    out = {
+        "shape": [m, n, w],
+        "ms": device_ms,
+        "device_ms": device_ms,
+        "call_ms": cuda_ms(torch, call, 50),
+        "profiler_ms": profiled_ms(torch, call, ("forecast_kernel",), 50),
+        "plain_ms": cuda_ms(torch, lambda: forecast_reference(values, valid, 1), 5),
+        "bound_ms": max(bytes_ms, operations_ms),
+        "bound_by": "bytes" if bytes_ms >= operations_ms else "operations",
+        "bytes": bytes_needed,
+        "operations_ms": operations_ms,
+        "samples": samples,
+    }
+    forecast_cuda.LAUNCHES = launches  # the timing's launches are not the main path's
+    return out
+
+
+def forecast_lines(f: dict, card: str) -> list:
+    refit = f["churn_refit_ms"]
+    t = f["timed"]
+    s = f["split"]
+    o = f["overlap"]
+    lines = [
+        f"forecast world: {NUM_NODES} nodes x {NUM_METRICS} metrics, 4 policies, the planner; staged history "
+        f"{'x'.join(map(str, f['staging_shape']))}; set-up {f['setup_s']:.3f} s; {FORECAST_PASSES} churned passes "
+        f"({FORECAST_RAMP_SHARE:.0%} ramp up and {FORECAST_RAMP_SHARE:.0%} down {FORECAST_RAMP_MILLI} milli a pass, "
+        f"the rest churn {CHURN:.0%}), each one launch, one fit pass, exact against the plain version and the CPU "
+        f"twin (max |diff| {f['max_abs_err']}); forecast launches {f['launches']} = fit passes {f['fit_passes']}",
+        f"forecast refit (a churned pass, ms): p50 {statistics.median(refit):.3f} max {max(refit):.3f} (with full "
+        f"rings, passes {FORECAST_WINDOW}-{FORECAST_PASSES}: p50 {statistics.median(refit[FORECAST_WINDOW - 1:]):.3f}, "
+        f"split medians timed inside those refits: snapshot and staging {s['staging']:.3f}, upload "
+        f"{s['upload']:.3f}, fit with readback {s['fit']:.3f}, unscale and view {s['view']:.3f}); the ranking "
+        f"warm after it p50 {statistics.median(f['churn_warm_ms']):.3f} ms [{card}]",
+        f"forecast prioritize native over a socket ({NUM_NODES} names): p50 {t['forecast']['p50_ms']:.3f} ms "
+        f"p99 {t['forecast']['p99_ms']:.3f} ms max {t['forecast']['max_ms']:.3f} ms (n={t['forecast']['n']}); "
+        f"snapshot-ranked p50 {t['snapshot']['p50_ms']:.3f} ms p99 {t['snapshot']['p99_ms']:.3f} ms "
+        f"max {t['snapshot']['max_ms']:.3f} ms (n={t['snapshot']['n']}); {f['differs']} of 8 bodies differ from "
+        f"the snapshot ranking; every body equal to the CPU twin's and the host path's; served in "
+        f"{f['serve_s']:.3f} s after the last pass, inside the {3 * SERVICE_SYNC_PERIOD_S:g} s freshness bound [{card}]",
+        f"forecast prioritize native while the refresh thread refits ({FORECAST_CALM_PASSES} calm passes, refit p50 "
+        f"{o['refit_p50_ms']:.3f} ms, requests back to back from a second connection): overlapping a refit p50 "
+        f"{o['during_p50_ms']:.3f} ms p99 {o['during_p99_ms']:.3f} ms max {o['during_max_ms']:.3f} ms "
+        f"(n={o['during_n']}); all in the stretch p50 {o['p50_ms']:.3f} ms p99 {o['p99_ms']:.3f} ms max "
+        f"{o['max_ms']:.3f} ms (n={o['n']}); no limit held [{card}]",
+        f"forecast degraded: after the churn {f['churn_extrapolation']}; after {FORECAST_CALM_PASSES} calm passes "
+        f"{f['calm_extrapolation']}; an outage of {f['outage_s']:.1f} s ({f['outage_passes']} failed passes) past "
+        f"the {LKG_MAX_AGE_S:g} s last-known-good window: {f['extrapolated_serves']} extrapolated serves, "
+        f"{f['outage_extrapolation']}; past the window's reach {f['capped_extrapolation']}, Prioritize neutral",
+    ]
+    if "times" in f:
+        k = f["times"]
+        lines.append(
+            f"forecast main path {'x'.join(map(str, k['shape']))}: kernel device {k['device_ms']:.4f} ms "
+            f"(torch.profiler {ms_or_not_measured(k['profiler_ms'])}), a wrapper call {k['call_ms']:.4f} ms, "
+            f"plain PyTorch {k['plain_ms']:.3f} ms, bound {k['bound_ms']:.4f} ms by {k['bound_by']} ({k['bytes']} "
+            f"bytes for {k['samples']} valid samples; operations {k['operations_ms']:.4f} ms), "
+            f"{k['bound_ms'] / k['device_ms']:.3f} of it; no single PyTorch call computes this function [{card}]"
+        )
+    return lines
+
+
+def check_forecast_limits(f: dict) -> None:
+    check(f["timed"]["forecast"]["p99_ms"] <= VERB_P99_LIMIT_MS,
+          f"forecast: native Prioritize p99 {f['timed']['forecast']['p99_ms']:.3f} ms over {VERB_P99_LIMIT_MS} ms")
+
+
 def main() -> int:
     if not (ROOT / PACKAGE / "__init__.py").is_file():
         print(f"chip_smoke: {PACKAGE}/ is not beside this script", file=sys.stderr)
@@ -3235,6 +3852,7 @@ def main() -> int:
     check_node_limit(torch, limit)
     gas_max_err = run_gas_parity(torch, gas_parity_cases(torch, np))
     check_card_limit(torch)
+    forecast_max_err = run_forecast_parity(torch, np)
 
     kernel = cuda_assign.greedy_assign_cuda
     launches = []
@@ -3310,6 +3928,17 @@ def main() -> int:
     gas_max_err = max(gas_max_err, gas_out["max_abs_err"])
     print(f"limits met: GAS Filter p99 <= {VERB_P99_LIMIT_MS} ms")
 
+    forecast_out = run_forecast(torch, np, "cuda")
+    for line in forecast_lines(forecast_out, card):
+        print(line)
+    check_forecast_limits(forecast_out)
+    check(
+        forecast_out["launches"] == forecast_out["fit_passes"] > 0,
+        f"forecast: {forecast_out['launches']} kernel launches for {forecast_out['fit_passes']} fit passes",
+    )
+    forecast_max_err = max(forecast_max_err, forecast_out["max_abs_err"])
+    print(f"limits met: forecast-ranked native Prioritize p99 <= {VERB_P99_LIMIT_MS} ms")
+
     # the kernels' device times last, so the profiler and the graphs' pools
     # are not in the host-timed phases
     timed = {
@@ -3330,6 +3959,7 @@ def main() -> int:
         )
 
     gas_times = gas_out["times"]
+    forecast_times = forecast_out["times"]
     kernels = [
         {
             "name": "greedy_assign",
@@ -3375,6 +4005,25 @@ def main() -> int:
             "shape": gas_times["shape"],
             "fits_cache_misses": gas_out["misses"],
             "fits_cache_hits": gas_out["hits"],
+        },
+        {
+            "name": "forecast",
+            "route": "cuda",
+            "source": f"{PACKAGE}/csrc/forecast.cu",
+            "replaces": "platform_aware_scheduling_tpu/ops/forecast.py:65",
+            "launches": forecast_out["launches"],
+            "max_abs_err": forecast_max_err,
+            "ms": forecast_times["ms"],
+            "device_ms": forecast_times["device_ms"],
+            "call_ms": forecast_times["call_ms"],
+            "profiler_ms": forecast_times["profiler_ms"],
+            "plain_ms": forecast_times["plain_ms"],
+            "bound_ms": forecast_times["bound_ms"],
+            "bound_by": forecast_times["bound_by"],
+            "library_ms": None,
+            "parity": True,
+            "shape": forecast_times["shape"],
+            "fit_passes": forecast_out["fit_passes"],
         },
     ]
     print(json.dumps({"kernels": kernels}))

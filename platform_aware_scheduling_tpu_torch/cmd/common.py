@@ -4,6 +4,7 @@ The port's copy of the parts of ``platform_aware_scheduling_tpu/cmd/
 common.py`` that ``cmd/tas.py`` and ``cmd/gas.py`` use: the robustness
 flags (retry, backoff, circuit breaking and, for TAS, ``--degradedMode``),
 the leader-election flags, the decision-log and event-journal flags, the
+forecast flags (TAS only) and the Forecaster built from them, the
 fault-tolerant proxy put in front of the kube client, and the lease
 elector built over it.  The JAX HA flags' gang journal
 (``--gangJournal*``) comes with the gang plane.
@@ -56,6 +57,61 @@ def add_robustness_flags(parser: argparse.ArgumentParser, degraded: bool = True)
                             "serving retained values within a bounded age "
                             "then fails open.  Evictions are ALWAYS "
                             "suspended while degraded (not configurable)")
+
+
+def add_forecast_flags(parser: argparse.ArgumentParser, forecast: bool = True) -> None:
+    """The predictive-telemetry flags.  Like ``--degradedMode`` they exist
+    only where a Forecaster is built (TAS): GAS has no telemetry cache to
+    forecast over, so ``forecast=False`` adds nothing and argparse refuses
+    the flags there."""
+    if not forecast:
+        return
+    parser.add_argument("--forecast", default="off", choices=["off", "on"],
+                        help="schedule on forecasts, not snapshots: a "
+                        "batched on-device EWMA/Holt fit over the "
+                        "telemetry refresh history ranks scheduleonmetric "
+                        "on predicted-at-bind values, and lets degraded "
+                        "last-known-good mode serve bounded extrapolations")
+    parser.add_argument("--forecastWindow", type=int, default=32,
+                        help="refresh-history samples kept per metric "
+                        "(the fit's lookback window)")
+    parser.add_argument("--forecastHorizon", default="",
+                        help="how far ahead predictions target (Go "
+                        "duration); empty = one refresh period ahead "
+                        "(the value at the next refresh); capped at "
+                        "--forecastWindow refresh steps")
+    parser.add_argument("--forecastBandBound", type=float, default=0.25,
+                        help="max mean relative uncertainty band under "
+                        "which degraded LKG mode keeps serving forecast "
+                        "extrapolations; past it the frozen-LKG/neutral "
+                        "behavior returns")
+
+
+def forecast_options(args, sync_period_s: float) -> Optional[dict]:
+    """The ``--forecast*`` flags as the options ``assemble`` builds a
+    Forecaster from (None: off)."""
+    if getattr(args, "forecast", "off") != "on":
+        return None
+    horizon_s = None
+    if getattr(args, "forecastHorizon", ""):
+        horizon_s = parse_duration(args.forecastHorizon)
+    return {
+        "window": args.forecastWindow,
+        "horizon_s": horizon_s,
+        "period_s": sync_period_s,
+        "band_bound": args.forecastBandBound,
+    }
+
+
+def build_forecaster(cache, mirror, options: Optional[dict]):
+    """The Forecaster of ``--forecast=on`` over the cache's history rings
+    and the mirror (None when off, or with no mirror: the forecast views
+    ride the device mirror)."""
+    if options is None or mirror is None:
+        return None
+    from platform_aware_scheduling_tpu_torch.forecast import Forecaster
+
+    return Forecaster(cache, mirror, **options)
 
 
 def add_ha_flags(parser: argparse.ArgumentParser) -> None:

@@ -55,6 +55,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         help="unsafe instances of extender will be served over http")
     parser.add_argument("--v", type=int, default=4, help="klog verbosity")
     common.add_robustness_flags(parser, degraded=False)
+    common.add_forecast_flags(parser, forecast=False)
     common.add_decision_flags(parser)
     common.add_event_flags(parser)
     return parser

@@ -3,14 +3,14 @@
 The port's copy of ``platform_aware_scheduling_tpu/cmd/tas.py``.  The
 reference's flag surface (``--kubeConfig --port --cert --key --cacert
 --unsafe --syncPeriod`` plus klog's ``--v``), the batch planner's flags,
-and the robustness (``--degradedMode`` among them), leader-election,
-decision-log and event-journal flags, each with the JAX main's name,
-default and meaning.  A tensor mirror on the GPU sits behind the cache,
-so the verbs' scoring, the planner's solve and the deschedule evaluation
-run on the card.
+and the robustness (``--degradedMode`` among them), forecast,
+leader-election, decision-log and event-journal flags, each with the JAX
+main's name, default and meaning.  A tensor mirror on the GPU sits behind
+the cache, so the verbs' scoring, the planner's solve, the deschedule
+evaluation and, with ``--forecast=on``, the forecast fit run on the card.
 
     python -m platform_aware_scheduling_tpu_torch.cmd.tas --unsafe \\
-        --batchPlanner --nodeCacheCapable --leaderElect
+        --batchPlanner --nodeCacheCapable --leaderElect --forecast=on
 
 As the JAX main does, ``main`` always builds the degraded-mode controller
 over the circuit breakers of its fault-tolerant client: while telemetry is
@@ -19,8 +19,8 @@ deschedule label pass is suspended.  With ``--leaderElect`` only the
 lease's holder writes labels.
 
 The flags of the JAX main's other planes (profiler, rebalancer, gang and
-the gang journal, admission, shard, forecast, SLO, control, flight
-recorder, solve observatory, ``--batchSolver=sinkhorn``,
+the gang journal, admission, shard, SLO, control, flight recorder, solve
+observatory, ``--batchSolver=sinkhorn``,
 ``--serving=async``) are absent until their planes are ported, so
 argparse refuses them.
 """
@@ -97,6 +97,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
     common.add_robustness_flags(parser)
     common.add_decision_flags(parser)
     common.add_event_flags(parser)
+    common.add_forecast_flags(parser)
     common.add_ha_flags(parser)
     return parser
 
@@ -111,6 +112,7 @@ def assemble(
     node_cache_capable: bool = False,
     breakers=None,
     degraded_mode: Optional[str] = None,
+    forecast_options: Optional[dict] = None,
     leadership=None,
     device: DeviceLike = None,
 ):
@@ -122,7 +124,12 @@ def assemble(
 
     ``breakers`` / ``degraded_mode``: when either is given, a
     DegradedModeController over the cache's freshness and the circuits'
-    states is attached to the extender and the enforcer.  ``leadership``:
+    states is attached to the extender and the enforcer.
+    ``forecast_options``: the ``--forecast=on`` options
+    (``common.forecast_options``); a Forecaster over the cache's history
+    rings and the mirror is attached to the extender (predicted-value
+    ranking, ``/debug/forecast``) and the degraded-mode controller
+    (bounded extrapolation).  ``leadership``:
     the ``--leaderElect`` LeaseElector, attached to the enforcer (the
     label pass runs on the leader only) and the extender (``/readyz``,
     ``/debug/leader``); the caller starts it."""
@@ -132,10 +139,21 @@ def assemble(
     planner = None
     if enable_batch_planner:
         planner = BatchPlanner(cache, mirror, solver=batch_solver, device=mirror.device)
+    # the forecaster exists BEFORE the extender: the extender's constructor
+    # runs the first warm pass, and the history rings must be recording
+    # when the first metric writes land
+    forecaster = common.build_forecaster(cache, mirror, forecast_options)
     extender = MetricsExtender(
         cache, mirror=mirror, planner=planner, node_cache_capable=node_cache_capable
     )
     extender.leadership = leadership
+    if forecaster is not None:
+        extender.forecaster = forecaster
+        # after the forecaster's own refit hook (appended when it was
+        # built), so each refresh pass warms rankings against the fit it
+        # has just published: warm_fastpath fires mid-pass, before the
+        # refit, and would leave every fresh forecast view cold
+        cache.on_refresh_pass.append(extender.warm_forecast_rankings)
 
     # the registration order is the order the violation map lists policies
     # in, and so the order of each node's patch operations
@@ -146,6 +164,7 @@ def assemble(
     enforcer.register_strategy_type(dontschedule.Strategy())
     if breakers is not None or degraded_mode is not None:
         degraded = DegradedModeController(cache, breakers=breakers, mode=degraded_mode or MODE_LAST_KNOWN_GOOD)
+        degraded.forecaster = forecaster  # bounded last-known-good extrapolation
         extender.degraded = degraded
         enforcer.degraded = degraded
 
@@ -225,6 +244,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         node_cache_capable=args.nodeCacheCapable,
         breakers=breakers,
         degraded_mode=args.degradedMode,
+        forecast_options=common.forecast_options(args, sync_period_s),
         leadership=leadership,
         device=device,
     )

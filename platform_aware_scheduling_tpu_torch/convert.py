@@ -4,7 +4,9 @@ The system's "weights" are its cluster state.  The JAX package holds
 int64 as the ``(hi: int32, lo: uint32)`` split of its ``ops/i64.py``;
 these functions take those arrays as numpy arrays, join every int64
 exactly, and build the port's ``ClusterState`` / ``PendingPods`` and GAS
-``BinpackNodeState`` / ``BinpackRequest`` on ``device``.
+``BinpackNodeState`` / ``BinpackRequest`` on ``device``.  The forecast
+plane's staged history and fit outputs are int32 and bool already: they
+cross as they are, onto ``device``.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from platform_aware_scheduling_tpu_torch.models.batch_scheduler import (
     PendingPods,
 )
 from platform_aware_scheduling_tpu_torch.ops.binpack import BinpackNodeState, BinpackRequest
+from platform_aware_scheduling_tpu_torch.ops.forecast import ForecastResult
 from platform_aware_scheduling_tpu_torch.ops.i64 import join_int64
 from platform_aware_scheduling_tpu_torch.ops.rules import RuleSet
 from platform_aware_scheduling_tpu_torch.utils.device import DeviceLike, resolve_device
@@ -106,3 +109,30 @@ def binpack_request_from_numpy(
         num_gpus=_put(num_gpus, np.int32, device),
         container_active=_put(container_active, bool, device),
     )
+
+
+def history_tensor_from_numpy(
+    values,  # int32 [M, N, W]
+    valid,  # bool [M, N, W]
+    device: DeviceLike = None,
+):
+    """A staged history (the JAX ``HistoryTensor``'s ``values`` and
+    ``valid``) as the ``(values, valid)`` tensors ``ops/forecast.forecast_fit``
+    takes."""
+    device = resolve_device(device)
+    return _put(values, np.int32, device), _put(valid, bool, device)
+
+
+def forecast_result_from_numpy(
+    level,  # int32 [M, N]
+    trend,  # int32 [M, N]
+    resid,  # int32 [M, N]
+    predicted,  # int32 [M, N]
+    band,  # int32 [M, N]
+    samples,  # int32 [M, N]
+    device: DeviceLike = None,
+) -> ForecastResult:
+    """A JAX ``ForecastResult`` (six int32 arrays, in field order) as the
+    port's."""
+    device = resolve_device(device)
+    return ForecastResult(*(_put(part, np.int32, device) for part in (level, trend, resid, predicted, band, samples)))

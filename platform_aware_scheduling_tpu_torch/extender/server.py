@@ -13,13 +13,15 @@ with the routes and middleware of the reference extender:
   * the observability surface: ``/healthz``, ``/readyz``, ``/metrics``,
     ``/debug/traces``, ``/debug/decisions``, ``/debug/explain``,
     ``/debug/leader`` (the elector's state, when one is wired),
+    ``/debug/forecast`` (the forecaster's fits, when one is wired),
     ``/debug/wire`` (the wire path's caches, when the scheduler has a
     device fastpath) and the ``/debug`` index.
 
 The JAX server's other ``/debug/*`` endpoints belong to planes the port
 does not have yet; each answers here exactly as the JAX server does with
 its plane off (:data:`PLANE_OFF`), as ``/debug/leader`` does with no
-elector wired and ``/debug/wire`` with no fastpath.
+elector wired, ``/debug/forecast`` with no forecaster and ``/debug/wire``
+with no fastpath.
 """
 
 from __future__ import annotations
@@ -84,6 +86,7 @@ DEBUG_ENDPOINTS = [
     {"path": "/metrics", "description": "Prometheus exposition: verb histograms, path attribution, pas_* families"},
     {"path": "/debug/traces", "description": "recent + slowest request traces; filters: ?verb=<verb>&min_ms=<float>"},
     {"path": "/debug/decisions", "description": "scheduling decision provenance records; filters: ?pod=<name>&verb=<verb>&limit=<n> (404 when --decisionLog=off)"},
+    {"path": "/debug/forecast", "description": "per-metric forecast fits: slopes, horizons, uncertainty bands (404 when --forecast=off)"},
     {"path": "/debug/leader", "description": "leader-election state: role, lease holder, fencing token (404 when --leaderElect is off)"},
     {"path": "/debug/wire", "description": "wire-path caches: interned node-name universes, intern hit/miss/eviction counts, response-skeleton keys (404 without a device fastpath)"},
     {"path": "/debug/explain", "description": "causal event spine: the ordered event chain + narrative for one entity; filters: ?pod=<ns/name>&gang=<id>&request_id=<id>&node=<name> (404 when --events=off)"},
@@ -408,6 +411,13 @@ class Server:
             leadership = getattr(self.scheduler, "leadership", None)
             if leadership is not None:
                 return HTTPResponse.json(leadership.to_json())
+        if bare_path == "/debug/forecast" and request.method == "GET":
+            # the forecast fits and extrapolation state (forecast/engine.py);
+            # with no forecaster wired (--forecast=off, GAS) the plane-off
+            # 404 below answers
+            forecaster = getattr(self.scheduler, "forecaster", None)
+            if forecaster is not None:
+                return HTTPResponse.json(forecaster.to_json())
         if bare_path == "/debug/wire" and request.method == "GET":
             # the wire path's caches (tas/fastpath.wire_debug); without a
             # device fastpath (host-only TAS, GAS) the 404 below answers

@@ -31,7 +31,7 @@ NVCC_FLAGS = (
     "-Xcompiler",
     "-fPIC",
 )
-KERNELS = ("greedy_assign", "binpack")
+KERNELS = ("greedy_assign", "binpack", "forecast")
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -19,13 +19,17 @@ Every publish that changes the snapshot or the compiled-policy set runs
 the ``on_state_change`` callbacks after the lock is released: the
 extender's warm pass subscribes there, so the device ranking runs in the
 state-refresh thread, never on a request.
+
+:func:`build_history_tensor` stages the cache's refresh-history rings
+(``tas/cache.py``) against one view's rows and columns for the forecast
+fit (``ops/forecast.py``), as the JAX package's does.
 """
 
 from __future__ import annotations
 
 import threading
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -38,6 +42,92 @@ from platform_aware_scheduling_tpu_torch.utils.device import DeviceLike, resolve
 MIN_NODE_CAPACITY = 64
 MIN_METRIC_CAPACITY = 8
 RULE_PAD = 8
+
+#: forecast history staging keeps each metric's values inside int32 after
+#: a per-row arithmetic right shift.  The budget depends on the window
+#: (see history_value_bits): the Holt recursion's per-step sums need ~2
+#: bits of headroom over the value range, and the residual accumulator
+#: sums up to W-1 absolute errors on top
+HISTORY_VALUE_BITS = 30
+
+
+def history_value_bits(window: int) -> int:
+    """Max bits of staged value magnitude for ``window`` samples such that
+    level/trend/error, the W-1-term residual accumulator and the band tail
+    ``resid * (1 + h)`` at the clamped horizon (~2W, forecast/engine.py
+    ``_steps_now``) all stay inside int32 (floored at 8 bits: milli
+    precision lost past that would be worse than the overflow risk)."""
+    return max(8, HISTORY_VALUE_BITS - 2 - max(int(window) - 1, 0).bit_length())
+
+
+class HistoryTensor(NamedTuple):
+    """Dense staging of the cache's refresh history, aligned to one
+    DeviceView's ``[metric row, node column]`` universe plus a trailing
+    time axis: the last ``W`` refresh samples, oldest first, right-aligned
+    at ``W - 1`` (shorter series lead with invalid slots).
+
+    Values are milli-units arithmetic-right-shifted per metric row by
+    ``shift[m]`` so every sample fits int32 (the fit runs in the scaled
+    domain; predictions are shifted back up on the host).  ``valid`` marks
+    real samples: a node absent from a sample, a metric with fewer than W
+    samples, and rows or columns outside the view stay False.  Host numpy
+    arrays; the forecaster uploads them to the mirror's device."""
+
+    values: np.ndarray  # int32 [M, N, W]: milli >> shift[m]
+    valid: np.ndarray  # bool [M, N, W]
+    shift: np.ndarray  # int64 [M]: per-metric de-scale amount
+    last_stamp: np.ndarray  # float64 [M]: newest sample stamp (nan: none)
+
+
+def build_history_tensor(
+    view: "DeviceView",
+    history: Dict[str, List[Tuple[float, Dict[str, int]]]],
+    window: int,
+) -> HistoryTensor:
+    """Stage the cache's history rings into the dense ``[M, N, W]`` form
+    (see :class:`HistoryTensor`) against ``view``'s interning.  Metrics or
+    nodes unknown to the view are dropped: the forecast universe is
+    exactly the snapshot the rankings run against."""
+    metric_index = view.metric_index or {}
+    node_index = view.node_index
+    m_cap = view.values.shape[0]
+    n_cap = view.node_capacity
+    w = int(window)
+    values64 = np.zeros((m_cap, n_cap, w), dtype=np.int64)
+    valid = np.zeros((m_cap, n_cap, w), dtype=bool)
+    last_stamp = np.full(m_cap, np.nan, dtype=np.float64)
+    # a scatter per sample by fancy indexing: the column lookup is the only
+    # per-node Python left
+    for name, ring in history.items():
+        row = metric_index.get(name)
+        if row is None or row >= m_cap:
+            continue
+        samples = ring[-w:]
+        base = w - len(samples)
+        for j, (_stamp, sample) in enumerate(samples):
+            if not sample:
+                continue
+            slot = base + j
+            cols = np.fromiter(
+                (node_index.get(node, -1) for node in sample), dtype=np.int64, count=len(sample)
+            )
+            vals = np.fromiter(sample.values(), dtype=np.int64, count=len(sample))
+            keep = (cols >= 0) & (cols < n_cap)
+            values64[row, cols[keep], slot] = vals[keep]
+            valid[row, cols[keep], slot] = True
+        if samples:
+            last_stamp[row] = samples[-1][0]
+    # per-metric de-scale so the largest magnitude fits the window-aware
+    # bit budget
+    bits = history_value_bits(w)
+    masked = np.where(valid, np.abs(values64), 0)
+    max_abs = masked.max(axis=(1, 2))
+    shift = np.zeros(m_cap, dtype=np.int64)
+    over = max_abs >> np.int64(bits)
+    for row in np.nonzero(over)[0]:
+        shift[row] = int(max_abs[row]).bit_length() - bits
+    scaled = (values64 >> shift[:, None, None]).astype(np.int32)
+    return HistoryTensor(values=scaled, valid=valid, shift=shift, last_stamp=last_stamp)
 
 
 def _next_capacity(current: int, needed: int) -> int:
@@ -108,7 +198,9 @@ class DeviceView:
 
     ``values_milli`` is a host copy of the matrix, so violation reasons
     ("metric cpu=93 > threshold 80") are formatted without a device
-    readback.
+    readback.  ``metric_index`` (metric name -> row) lets row-aligned
+    overlays, the forecast history tensor among them, be built against
+    this exact snapshot; None in synthetic views built without it.
     """
 
     def __init__(
@@ -121,6 +213,7 @@ class DeviceView:
         row_versions: Tuple[int, ...] = (),
         intern_version: int = 0,
         values_milli: Optional[np.ndarray] = None,
+        metric_index: Optional[Dict[str, int]] = None,
     ):
         self.values = values
         self.present = present
@@ -130,6 +223,7 @@ class DeviceView:
         self.row_versions = row_versions
         self.intern_version = intern_version
         self.values_milli = values_milli
+        self.metric_index = metric_index
 
     def row_version(self, row: int) -> int:
         return self.row_versions[row] if row < len(self.row_versions) else 0
@@ -451,5 +545,6 @@ class TensorStateMirror:
             row_versions=tuple(self._row_versions.get(r, 0) for r in range(rows)),
             intern_version=self._intern_version,
             values_milli=values_milli,
+            metric_index=dict(self._metric_index),
         )
         return self._view

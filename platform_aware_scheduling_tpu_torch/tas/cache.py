@@ -11,14 +11,17 @@ changes without polling.
 Freshness bookkeeping (when each metric last carried data, when the last
 refresh pass ended, the refresh period) feeds the ``/readyz``
 ``telemetry_fresh`` condition and the ``pas_telemetry_metric_age_seconds``
-gauges.  The JAX cache's refresh-history rings come with the forecast
-layer.
+gauges.  With ``configure_history`` (the forecaster's), each
+data-bearing write also appends one ``(stamp, {node: milli})`` sample to
+its metric's bounded ring, and the ``on_refresh_pass`` hooks run once at
+the end of every refresh pass, where the forecaster refits.
 """
 
 from __future__ import annotations
 
 import threading
 import time
+from collections import deque
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from platform_aware_scheduling_tpu_torch.kube.retry import CircuitOpenError
@@ -109,6 +112,17 @@ class AutoUpdatingCache:
         self.on_metric_delete: List[Callable[[str], None]] = []
         self.on_policy_write: List[Callable[[str, str, TASPolicy], None]] = []
         self.on_policy_delete: List[Callable[[str, str], None]] = []
+        # run once at the END of each update_all_metrics pass, after every
+        # metric write of the pass landed: the forecaster refits here, once
+        # a pass instead of once a metric
+        self.on_refresh_pass: List[Callable[[], None]] = []
+        # refresh history: a bounded ring of the last W data-bearing writes
+        # per metric, (stamp, {node: milli}).  A failed refresh appends
+        # nothing, so gaps show in the stamps; delete_metric drops the ring
+        # with its metric.  Off (window 0) until configure_history
+        self._history_window = 0
+        self._history: Dict[str, deque] = {}
+        self._history_generation = 0
 
     # -- Reader ---------------------------------------------------------------
 
@@ -149,8 +163,25 @@ class AutoUpdatingCache:
                 # a data-bearing write IS a refresh: the clock this metric's
                 # freshness is judged by
                 stamp = self._clock()
+                # the history sample (a milli conversion per node) is built
+                # OUTSIDE the lock, so readers of metric_ages() and
+                # history_snapshot() do not wait on it; the bare read of the
+                # window races only configure_history, and the locked
+                # re-check decides
+                sample = None
+                if self._history_window:
+                    sample = {
+                        node: metric.value.milli_value_exact()[0] for node, metric in payload.items()
+                    }
                 with self._mtx:
                     self._last_refresh[metric_name] = stamp
+                    if self._history_window and sample is not None:
+                        ring = self._history.get(metric_name)
+                        if ring is None:
+                            ring = deque(maxlen=self._history_window)
+                            self._history[metric_name] = ring
+                        ring.append((stamp, sample))
+                        self._history_generation += 1
             for hook in self.on_metric_write:
                 hook(metric_name, payload)
 
@@ -175,6 +206,10 @@ class AutoUpdatingCache:
                     del self._metric_refcounts[metric_name]
                     self._store.delete(METRIC_PATH.format(metric_name))
                     self._last_refresh.pop(metric_name, None)
+                    # the ring dies with its metric: a later registration
+                    # must not forecast from a ghost series
+                    if self._history.pop(metric_name, None) is not None:
+                        self._history_generation += 1
                     evicted = True
                 elif total is not None:
                     self._metric_refcounts[metric_name] = total - 1
@@ -233,6 +268,45 @@ class AutoUpdatingCache:
             self.counters.set_gauge(
                 "pas_telemetry_metric_age_seconds", round(age, 6), labels={"metric": name}
             )
+        # one end-of-pass notification, never one a metric: the forecaster
+        # refits over the pass's complete sample set, in this thread
+        for hook in list(self.on_refresh_pass):
+            try:
+                hook()
+            except Exception as exc:  # noqa: BLE001 — a subscriber must not stop refreshes
+                klog.error("refresh-pass subscriber failed: %r", exc)
+
+    # -- refresh history --------------------------------------------------------
+
+    def configure_history(self, window: int) -> None:
+        """Enable (or re-bound) the per-metric refresh-history rings: each
+        data-bearing write appends one ``(stamp, {node: milli})`` sample,
+        bounded at the last ``window``.  Failed refreshes append nothing:
+        a gap shows as stamp spacing, never as a made-up sample."""
+        window = int(window)
+        if window < 1:
+            raise ValueError(f"history window must be >= 1, got {window}")
+        with self._mtx:
+            if window != self._history_window:
+                self._history = {name: deque(ring, maxlen=window) for name, ring in self._history.items()}
+                self._history_window = window
+                self._history_generation += 1
+
+    def history_window(self) -> int:
+        with self._mtx:
+            return self._history_window
+
+    def history_generation(self) -> int:
+        """Monotonic counter bumped on every history mutation: the
+        forecaster refits only when it moves."""
+        with self._mtx:
+            return self._history_generation
+
+    def history_snapshot(self) -> Tuple[int, Dict[str, List[Tuple[float, Dict[str, int]]]]]:
+        """(generation, {metric: [(stamp, {node: milli}), ...]}) oldest
+        first.  The sample dicts are shared read-only."""
+        with self._mtx:
+            return self._history_generation, {name: list(ring) for name, ring in self._history.items()}
 
     # -- freshness --------------------------------------------------------------
 

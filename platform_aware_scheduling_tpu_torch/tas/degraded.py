@@ -71,9 +71,11 @@ class DegradedModeController:
         #: how many freshness bounds past staleness LKG answers stay servable
         self.lkg_bound_multiple = DEFAULT_LKG_BOUND_MULTIPLE
         self.counters = counters if counters is not None else trace.COUNTERS
-        # a forecaster that may carry last-known-good past its frozen
-        # window by bounded extrapolation; None until the forecast layer
-        # is ported
+        # the forecast.Forecaster under --forecast=on: while telemetry is
+        # stale PAST the frozen-LKG window, last-known-good keeps serving
+        # by bounded extrapolation (Prioritize ranks on the grown-horizon
+        # predictions, Filter keeps its last-known-good verdicts) until the
+        # widening band passes its bound.  Evictions stay suspended
         self.forecaster = None
 
     # -- inputs ----------------------------------------------------------------

@@ -47,12 +47,16 @@ With a degraded-mode controller attached (``degraded``), the verbs
 degrade as the JAX extender's do while telemetry is stale or a circuit is
 open: Prioritize serves last-known-good scores (its span tagged
 ``degraded``) and then neutral ones, every candidate scored 0; Filter
-fails open or closed per ``--degradedMode``.  A leader elector
+fails open or closed per ``--degradedMode``.  With a forecaster attached
+(``forecaster``, ``--forecast=on``), scheduleonmetric ranks on the
+predicted values of the forecaster's view, on the native, device and host
+paths alike (span ``ranking`` ``forecast``), and decision records carry
+the prediction's provenance.  A leader elector
 (``leadership``) adds its ``/readyz`` condition and ``/debug/leader``;
 every replica serves the verbs alike.
 
 The JAX extender's other optional planes (shards, admission, gangs,
-forecasts, SLOs, control, flight recorder, solve observatory, rebalancer)
+SLOs, control, flight recorder, solve observatory, rebalancer)
 are not ported yet; with them unset the JAX verbs answer with the same
 bytes as this module.  One difference is kept on purpose: the Filter
 response cache keys on the policy's name beside its violation set, since
@@ -133,6 +137,13 @@ class MetricsExtender:
         # the kube.lease.LeaseElector under --leaderElect: its role shows
         # on /readyz and /debug/leader; the verbs do not depend on it
         self.leadership = None
+        # the forecast.Forecaster under --forecast=on, set by assembly:
+        # scheduleonmetric ranks on predicted-at-bind values through the
+        # same fastpath and host machinery (the forecaster publishes a
+        # DeviceView of predicted milli values), decision records carry
+        # "predicted cpu=93 (slope +2.1/s)", and /debug/forecast is served.
+        # None keeps snapshot ranking byte for byte
+        self.forecaster = None
         # request-independent ranking/violation caches + byte encoder
         self.fastpath = PrioritizeFastPath() if mirror is not None else None
         # /readyz "kernels_warmed": whether the latest warm pass completed
@@ -180,10 +191,41 @@ class MetricsExtender:
                     filter_ok=filter_ok[ns, name],
                     prioritize_ok=self._prioritize_device_eligible(compiled, host_only),
                 )
+            if self.forecaster is not None:
+                # after precompute, whose pruning keeps only the real
+                # view's rankings; the forecast view's negative version
+                # markers never collide with them
+                self.warm_forecast_rankings()
             self._warmed = True
         except Exception as exc:  # warming must never break the writer
             self._warmed = False
             klog.error("fastpath warm failed: %s", exc)
+
+    def warm_forecast_rankings(self) -> None:
+        """Warm the ranking cache of every device-eligible policy against
+        the CURRENT forecast view.  Called from :meth:`warm_fastpath` and,
+        decisively, from the cache's refresh-pass hook AFTER the
+        forecaster's refit (assembly registers it there): warm_fastpath
+        fires mid-pass, before the refit replaces the forecast view, so
+        without this pass every fresh fit would go cold to its first
+        request.  Never raises."""
+        fastpath = self.fastpath
+        if self.forecaster is None or fastpath is None:
+            return
+        try:
+            policies, _view, host_only_map = self.mirror.policies_snapshot()
+
+            def host_only(name: str) -> bool:
+                return host_only_map.get(name, False)
+
+            for compiled in policies.values():
+                if not self._prioritize_device_eligible(compiled, host_only):
+                    continue
+                fview = self._forecast_rank_view(compiled)
+                if fview is not None:
+                    fastpath.warm_pairs(fview, [(compiled.scheduleonmetric_row, compiled.scheduleonmetric_op)])
+        except Exception as exc:  # noqa: BLE001 — warming must never break the refresher
+            klog.error("forecast ranking warm failed: %s", exc)
 
     # -- readiness and metrics --------------------------------------------------
 
@@ -570,14 +612,18 @@ class MetricsExtender:
             universe = self.fastpath.universe_probe(wirec, parsed, use_node_names)
         if compiled is not None and self._device_prioritize_ok(compiled):
             try:
+                rank_view = self._forecast_rank_view(compiled) or view
                 body = self.fastpath.prioritize_parsed(
-                    wirec, compiled, view, parsed, planned, use_node_names, span=span, universe=universe
+                    wirec, compiled, rank_view, parsed, planned, use_node_names, span=span, universe=universe
                 )
                 span.set("path", "native")
+                if rank_view is not view:
+                    span.set("ranking", "forecast")
                 trace.COUNTERS.inc("pas_prioritize_native_total")
                 self._record_prioritize(
                     span, namespace, parsed.pod_name or "", policy_name,
-                    "native", rule, int(candidates), planned, compiled=compiled, view=view,
+                    "native", rule, int(candidates), planned, compiled=compiled, view=rank_view,
+                    forecast=rank_view is not view,
                 )
                 events.JOURNAL.publish(
                     "verdict",
@@ -630,10 +676,14 @@ class MetricsExtender:
         compiled: Optional[CompiledPolicy] = None,
         view: Optional[DeviceView] = None,
         result: Optional[List[HostPriority]] = None,
+        forecast: bool = False,
     ) -> None:
         """One Prioritize decision record: device-path records reference
         the shared per-state score head and ranking, host-path records
-        copy the top of their own result.  Never raises into the verb."""
+        copy the top of their own result.  ``forecast`` marks a ranking
+        served from predicted values: the record's detail then carries the
+        forecast provenance of the top node ("predicted cpu=93 (slope
+        +2.1/s)").  Never raises into the verb."""
         if not decisions.DECISIONS.enabled:
             return
         try:
@@ -644,6 +694,13 @@ class MetricsExtender:
                 head, ranked, node_index = self.fastpath.explain_prioritize(compiled, view)
             elif result:
                 head = [(hp.host, hp.score) for hp in result[:10]]
+            detail = None
+            if forecast and self.forecaster is not None:
+                detail = {"ranking": "forecast"}
+                if head and rule is not None:
+                    described = self.forecaster.describe(rule.metricname, head[0][0])
+                    if described:
+                        detail["top"] = described
             decisions.DECISIONS.record_prioritize(
                 request_id=span.trace_id,
                 pod_namespace=namespace,
@@ -657,6 +714,7 @@ class MetricsExtender:
                 planned=planned,
                 ranked=ranked,
                 node_index=node_index,
+                detail=detail,
             )
         except Exception as exc:  # provenance must never fail the verb
             klog.error("prioritize decision record failed: %r", exc)
@@ -711,11 +769,15 @@ class MetricsExtender:
         if compiled is not None and self._device_prioritize_ok(compiled):
             try:
                 planned = self.planner.planned_node(args.pod) if self.planner else None
-                body = self.fastpath.prioritize_bytes(compiled, view, names, planned, span=span)
+                rank_view = self._forecast_rank_view(compiled) or view
+                body = self.fastpath.prioritize_bytes(compiled, rank_view, names, planned, span=span)
                 span.set("path", "device")
+                if rank_view is not view:
+                    span.set("ranking", "forecast")
                 self._record_prioritize(
                     span, args.pod.namespace, args.pod.name, policy.name,
-                    "device", rule, len(names), planned, compiled=compiled, view=view,
+                    "device", rule, len(names), planned, compiled=compiled, view=rank_view,
+                    forecast=rank_view is not view,
                 )
                 return body
             except Exception as exc:  # device trouble must never fail the verb
@@ -746,8 +808,39 @@ class MetricsExtender:
         reordered = [planned] + [h for h in hosts if h != planned]
         return [HostPriority(host=h, score=10 - i) for i, h in enumerate(reordered)]
 
+    def _forecast_rank_view(self, compiled: Optional[CompiledPolicy]):
+        """The forecast DeviceView to rank this policy's scheduleonmetric
+        rule on, or None (snapshot ranking).  Never raises into a verb:
+        forecasting trouble degrades to snapshot ranking."""
+        forecaster = self.forecaster
+        if forecaster is None or compiled is None:
+            return None
+        try:
+            return forecaster.ranking_view(compiled.scheduleonmetric_metric)
+        except Exception as exc:  # noqa: BLE001 — forecasting trouble must never fail the verb
+            klog.error("forecast ranking view failed, snapshot serves: %s", exc)
+            return None
+
     def _prioritize_host(self, rule: TASPolicyRule, candidate_names: List[str]) -> List[HostPriority]:
-        """prioritizeNodesForRule, exact host semantics."""
+        """prioritizeNodesForRule, exact host semantics.  With a forecaster
+        wired, the ranking reads the SAME predicted milli values the
+        forecast view carries, so native and host rankings on forecasts
+        give the same bytes; forecasting trouble falls back to the
+        snapshot read.  A host-only metric never forecasts: it is host-only
+        because its values are not milli-exact, and the history holds
+        milli-truncated samples."""
+        if self.forecaster is not None and not (
+            self.mirror is not None and self.mirror.metric_host_only(rule.metricname)
+        ):
+            try:
+                predicted = self.forecaster.host_metric(rule.metricname)
+            except Exception as exc:  # noqa: BLE001 — forecasting trouble must never fail the verb
+                klog.error("forecast host metric failed, snapshot serves: %s", exc)
+                predicted = None
+            if predicted is not None:
+                filtered = {name: predicted[name] for name in candidate_names if name in predicted}
+                ordered = core.ordered_list(filtered, rule.operator)
+                return [HostPriority(host=entry.node_name, score=10 - i) for i, entry in enumerate(ordered)]
         try:
             node_data = self.cache.read_metric(rule.metricname)
         except CacheMissError as exc:

@@ -143,6 +143,7 @@ class DecisionRecord:
         "score_head",
         "planned",
         "outcome",
+        "detail",
         "_ranked",
         "_node_index",
     )
@@ -165,6 +166,7 @@ class DecisionRecord:
         planned: Optional[str] = None,
         ranked: Optional[np.ndarray] = None,
         node_index: Optional[Mapping[str, int]] = None,
+        detail: Optional[Dict] = None,
     ):
         self.seq = 0  # assigned by the log
         self.request_id = request_id
@@ -188,6 +190,8 @@ class DecisionRecord:
         self.score_head = score_head if score_head is not None else []
         self.planned = planned
         self.outcome: Optional[Dict] = None
+        # verb-specific provenance (a forecast ranking's), None when absent
+        self.detail = detail
         # device-path rank lookup at bind time: the shared global ranking
         # and interning table (references, not copies)
         self._ranked = ranked
@@ -244,6 +248,8 @@ class DecisionRecord:
             out["score_head"] = [{"node": n, "score": s} for n, s in self.score_head]
         if self.planned is not None:
             out["planned"] = self.planned
+        if self.detail is not None:
+            out["detail"] = self.detail
         if self.outcome is not None:
             out["outcome"] = self.outcome
         return out

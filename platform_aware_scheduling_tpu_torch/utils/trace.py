@@ -112,6 +112,12 @@ declare("pas_events_published_total", "counter", "Typed events accepted into the
 declare("pas_events_dropped_total", "counter", "Oldest journal events evicted by ring overflow.")
 declare("pas_explain_requests_total", "counter", "GET /debug/explain queries served.")
 declare("pas_explain_chain_events", "gauge", "Events in the causal chain returned by the most recent /debug/explain query.")
+# predictive telemetry (forecast/engine.py + ops/forecast.py: batched
+# EWMA/Holt fits over the refresh history)
+declare("pas_forecast_fit_passes_total", "counter", "Batched forecast fit passes completed (one per telemetry refresh pass with history movement).")
+declare("pas_forecast_extrapolated_serves_total", "counter", "Degraded-mode requests served past the frozen-LKG window under forecast confidence: Prioritize ranks on the extrapolated predictions, Filter keeps the last-known-good verdicts alive.")
+declare("pas_forecast_suppressed_evictions_total", "counter", "Eviction escalations held back because every violated metric was trending down (transient spike) when snapshot hysteresis would have escalated.")
+declare("pas_forecast_metric_slope", "gauge", "Mean per-node forecast slope in metric units per second (label: metric).")
 
 #: process-wide counters: path attribution and the observability planes
 COUNTERS = CounterSet()

@@ -60,6 +60,7 @@ PORTED = [
     "--circuitFailureThreshold", "--circuitResetTimeout",
     "--decisionLog", "--decisionLogSize", "--events", "--eventsSize",
     "--degradedMode",
+    "--forecast", "--forecastWindow", "--forecastHorizon", "--forecastBandBound",
     "--leaderElect", "--leaseName", "--leaseNamespace", "--leaseDuration", "--leaseRenewPeriod", "--replicaId",
 ]
 

@@ -132,6 +132,30 @@ def test_service_packages_pull_in_no_jax(package):
     assert out.stdout.strip() == "[]", out.stdout
 
 
+FORECAST_MODULES = [
+    f"{PORT_ROOT.name}.{name}" for name in ("forecast", "forecast.engine", "ops.forecast", "ops.cuda_forecast")
+]
+
+
+@pytest.mark.parametrize("module", FORECAST_MODULES)
+def test_forecast_module_pulls_in_no_jax(module):
+    """Each forecast-plane module alone, in a fresh interpreter: no JAX and
+    nothing of the JAX package (the kernel's library is not built at
+    import)."""
+    assert module in {name for _path, name in _port_modules()}
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module({module!r})\n"
+        f"print(sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO_ROOT, env=env, capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+
+
 def test_native_loader_pulls_in_no_jax():
     """The wire extension's loader, built and loaded, in a fresh
     interpreter: it is the port's own copy, and brings in neither JAX nor
@@ -195,8 +219,10 @@ class TestDeviceRule:
                 np.ones(2, np.int32),
             ),
             lambda: BatchPlanner(AutoUpdatingCache(), TensorStateMirror(device="cpu")),
+            lambda: convert.history_tensor_from_numpy(np.zeros((1, 1, 2), np.int32), np.ones((1, 1, 2), bool)),
+            lambda: convert.forecast_result_from_numpy(*[np.zeros((1, 1), np.int32)] * 6),
         ],
-        ids=["mirror", "example_inputs", "pending_pods", "cluster_state", "planner"],
+        ids=["mirror", "example_inputs", "pending_pods", "cluster_state", "planner", "history", "forecast_result"],
     )
     def test_no_device_and_no_gpu_raises(self, entry):
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -108,12 +108,13 @@ def test_debug_endpoints_and_index():
     get = lambda path: port_srv.route(server.HTTPRequest("GET", path, {}, b""))  # noqa: E731
     index = json.loads(get("/debug").body)["endpoints"]
     assert [e["path"] for e in index] == [
-        "/healthz", "/readyz", "/metrics", "/debug/traces", "/debug/decisions", "/debug/leader", "/debug/wire",
-        "/debug/explain",
+        "/healthz", "/readyz", "/metrics", "/debug/traces", "/debug/decisions", "/debug/forecast",
+        "/debug/leader", "/debug/wire", "/debug/explain",
     ]
     for entry in index:
-        # no elector is wired here: /debug/leader answers its plane-off 404
-        want = 404 if entry["path"] == "/debug/leader" else 200
+        # no elector and no forecaster are wired here: /debug/leader and
+        # /debug/forecast answer their plane-off 404s
+        want = 404 if entry["path"] in ("/debug/leader", "/debug/forecast") else 200
         assert get(entry["path"] + ("?pod=default/p" if entry["path"] == "/debug/explain" else "")).status == want
     assert get("/metrics").body == b"m 1\n"
     ready = json.loads(get("/readyz").body)
