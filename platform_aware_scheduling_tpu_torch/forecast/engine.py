@@ -19,10 +19,13 @@ One :class:`Forecaster` serves three consumers:
     band stays inside ``--forecastBandBound``.
 
 Fits run OFF the request path: the cache's end-of-refresh-pass hook refits
-once a pass in the refresh thread, on the mirror's device (the CUDA
-kernel ``csrc/forecast.cu`` on the card, ``ops/forecast.forecast_reference``
-for a CPU mirror).  A failed fit is logged and the last published fit
-stands; a CUDA mirror never publishes a fit of the plain version.
+once a pass in the refresh thread, on the mirror's device.  The history
+lives there as an ``ops/state.HistoryRing``: a refit stages only the
+samples appended since the last one, and the fit reads the ring in place
+(the CUDA kernel ``csrc/forecast.cu`` on the card,
+``ops/forecast.forecast_ring_reference`` for a CPU mirror).  A failed fit
+is logged and the last published fit stands; a CUDA mirror never
+publishes a fit of the plain version.
 Requests only read the last published fit; the one request-path mutation
 is the cheap horizon re-extension when staleness has grown by a refresh
 period (plain tensor arithmetic over the stored fit, no kernel)."""
@@ -38,7 +41,7 @@ import numpy as np
 import torch
 
 from platform_aware_scheduling_tpu_torch.ops import forecast as ops_forecast
-from platform_aware_scheduling_tpu_torch.ops.state import DeviceView, build_history_tensor
+from platform_aware_scheduling_tpu_torch.ops.state import DeviceView, HistoryRing
 from platform_aware_scheduling_tpu_torch.utils import decisions, klog, trace
 from platform_aware_scheduling_tpu_torch.utils.tracing import CounterSet
 
@@ -114,6 +117,10 @@ class Forecaster:
         self._generation_seen = -1
         self._fview_generations = 0
         self.refit_stages_ms: Dict[str, float] = {}
+        #: the history on the mirror's device, staged a sample at a time;
+        #: refits take it in turn
+        self._ring = HistoryRing(mirror.device)
+        self._ring_lock = threading.Lock()
         cache.configure_history(self.window)
         # refit once a refresh pass, in the refresh thread: requests only
         # read a finished fit
@@ -169,28 +176,31 @@ class Forecaster:
             klog.error("forecast refit failed: %r", exc)
 
     def _refit(self, generation: int) -> None:
-        t0 = time.perf_counter()
-        _gen, history = self.cache.history_snapshot()
-        view = self.mirror.device_view()
-        tensor = build_history_tensor(view, history, self.window)
-        t1 = time.perf_counter()
-        device = self.mirror.device
-        values = torch.from_numpy(tensor.values).to(device)
-        valid = torch.from_numpy(tensor.valid).to(device)
-        t2 = time.perf_counter()
-        steps = self._base_steps()
-        # on the mirror's device (the kernel on the card), read back as
-        # CPU tensors
-        scaled = ops_forecast.forecast_fit(values, valid, steps)
-        t3 = time.perf_counter()
-        fit = self._publishable_fit(view, tensor.shift, scaled, steps)
-        fit.generation = generation
-        t4 = time.perf_counter()
+        with self._ring_lock:
+            t0 = time.perf_counter()
+            _gen, history = self.cache.history_snapshot()
+            view = self.mirror.device_view()
+            ring = self._ring
+            ring.stage(view, history, self.window)
+            t1 = time.perf_counter()
+            ring.upload()
+            t2 = time.perf_counter()
+            steps = self._base_steps()
+            # the ring read in place on the mirror's device (the kernel on
+            # the card), read back as CPU tensors
+            scaled = ops_forecast.forecast_ring_fit(
+                ring.values, ring.valid, ring.head, ring.shift_dev, ring.n_live, steps
+            )
+            t3 = time.perf_counter()
+            fit = self._publishable_fit(view, ring.shift.copy(), scaled, steps)
+            fit.generation = generation
+            t4 = time.perf_counter()
         with self._lock:
             self._generation_seen = generation
             self._fit = fit
-        #: the last refit's stages, wall ms: snapshot and staging, upload,
-        #: fit with its readback, unscale and forecast view
+        #: the last refit's stages, wall ms: the snapshot and the new
+        #: samples' staging, their upload, the fit with its readback,
+        #: unscale and forecast view
         self.refit_stages_ms = {
             "staging": (t1 - t0) * 1e3,
             "upload": (t2 - t1) * 1e3,

@@ -25,9 +25,11 @@ the residual mean is a floor division.
 
 :func:`forecast_fit` runs on the inputs' device (the plain version for CPU
 tensors, the kernel for CUDA tensors) and returns CPU tensors; it raises
-when the kernel cannot run.  Unlike the JAX package's ``forecast_fit``, it never swallows a
-device failure into the host mirror: the forecaster's ``refresh`` logs the
-failure and keeps the last published fit.
+when the kernel cannot run.  :func:`forecast_ring_fit` does the same for
+the forecaster's history ring (``ops/state.HistoryRing``), which the
+kernel reads in place.  Unlike the JAX package's ``forecast_fit``,
+neither swallows a device failure into the host mirror: the forecaster's
+``refresh`` logs the failure and keeps the last published fit.
 """
 
 from __future__ import annotations
@@ -138,6 +140,47 @@ def forecast_fit(values: torch.Tensor, valid: torch.Tensor, horizon: int) -> For
         from platform_aware_scheduling_tpu_torch.ops.cuda_forecast import forecast_cuda
 
         return ForecastResult(*forecast_cuda(values, valid, horizon).cpu().unbind(0))
+    raise ValueError(f"forecast has no path for device {values.device}")
+
+
+def forecast_ring_reference(
+    values: torch.Tensor, valid: torch.Tensor, head: torch.Tensor, shift: torch.Tensor, n_live: int, horizon: int
+) -> ForecastResult:
+    """The plain PyTorch version of the ring kernel, on the inputs' device:
+    the fit of a history ring (``ops/state.HistoryRing``: raw milli
+    ``values`` int64 and ``valid`` ``[M, W, N]``, each row's oldest slot
+    ``head[m]`` and de-scale ``shift[m]``).  It gathers each row's slots
+    oldest first, shifts each value right by its row's ``shift`` and keeps
+    the low 32 bits (numpy's ``astype(np.int32)`` after the staging's
+    shift), drops the columns from ``n_live`` on, and runs
+    :func:`forecast_reference` on the ``[M, N, W]`` result."""
+    if values.dim() != 3 or tuple(valid.shape) != tuple(values.shape):
+        raise ValueError(
+            f"forecast ring: want values and valid [M, W, N], got {tuple(values.shape)} and {tuple(valid.shape)}"
+        )
+    m, w, n = values.shape
+    order = (head.to(torch.int64)[:, None] + torch.arange(w, device=values.device)) % w
+    index = order[:, :, None].expand(m, w, n)
+    x = torch.gather(values.to(torch.int64), 1, index) >> shift.to(torch.int64)[:, None, None]
+    ok = torch.gather(valid.to(torch.bool), 1, index)
+    ok[:, :, n_live:] = False
+    return forecast_reference(_wrap(x).permute(0, 2, 1), ok.permute(0, 2, 1), horizon)
+
+
+def forecast_ring_fit(
+    values: torch.Tensor, valid: torch.Tensor, head: torch.Tensor, shift: torch.Tensor, n_live: int, horizon: int
+) -> ForecastResult:
+    """The fit of a history ring on its device, returned as CPU tensors:
+    :func:`forecast_ring_reference` for CPU tensors, the CUDA kernel
+    (``ops/cuda_forecast.forecast_ring_cuda``) for CUDA tensors, its six
+    outputs read back in one copy.  A kernel that cannot build or launch
+    raises here: a CUDA ring never gets the plain version's result."""
+    if values.device.type == "cpu":
+        return forecast_ring_reference(values, valid, head, shift, n_live, horizon)
+    if values.device.type == "cuda":
+        from platform_aware_scheduling_tpu_torch.ops.cuda_forecast import forecast_ring_cuda
+
+        return ForecastResult(*forecast_ring_cuda(values, valid, head, shift, n_live, horizon).cpu().unbind(0))
     raise ValueError(f"forecast has no path for device {values.device}")
 
 

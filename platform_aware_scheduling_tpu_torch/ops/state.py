@@ -22,7 +22,9 @@ state-refresh thread, never on a request.
 
 :func:`build_history_tensor` stages the cache's refresh-history rings
 (``tas/cache.py``) against one view's rows and columns for the forecast
-fit (``ops/forecast.py``), as the JAX package's does.
+fit (``ops/forecast.py``), as the JAX package's does.  The forecaster
+keeps the same history on the mirror's device in a :class:`HistoryRing`
+instead, which stages only the samples a refit has not seen yet.
 """
 
 from __future__ import annotations
@@ -119,15 +121,250 @@ def build_history_tensor(
             last_stamp[row] = samples[-1][0]
     # per-metric de-scale so the largest magnitude fits the window-aware
     # bit budget
-    bits = history_value_bits(w)
-    masked = np.where(valid, np.abs(values64), 0)
-    max_abs = masked.max(axis=(1, 2))
-    shift = np.zeros(m_cap, dtype=np.int64)
+    shift = _history_shift(np.where(valid, np.abs(values64), 0).max(axis=(1, 2)), w)
+    scaled = (values64 >> shift[:, None, None]).astype(np.int32)
+    return HistoryTensor(values=scaled, valid=valid, shift=shift, last_stamp=last_stamp)
+
+
+def _history_shift(max_abs: np.ndarray, window: int) -> np.ndarray:
+    """Per-row de-scale amounts from each row's largest staged magnitude:
+    :func:`build_history_tensor`'s formula."""
+    bits = history_value_bits(window)
+    shift = np.zeros(max_abs.shape[0], dtype=np.int64)
     over = max_abs >> np.int64(bits)
     for row in np.nonzero(over)[0]:
         shift[row] = int(max_abs[row]).bit_length() - bits
-    scaled = (values64 >> shift[:, None, None]).astype(np.int32)
-    return HistoryTensor(values=scaled, valid=valid, shift=shift, last_stamp=last_stamp)
+    return shift
+
+
+def _continued(staged: list, samples: list, window: int) -> Optional[int]:
+    """How many of ``samples``' newest are new when ``samples`` continues
+    what a ring row ``staged`` (by the identity of the sample objects),
+    such that the row's last ``window`` samples after appending them are
+    exactly ``samples``; None when it does not (restage the row)."""
+    if not staged:
+        return None
+    last = staged[-1]
+    for j in range(len(samples) - 1, -1, -1):
+        if samples[j] is last:
+            kept, new = j + 1, len(samples) - j - 1
+            if kept != min(len(staged), window - new):
+                return None
+            if any(a is not b for a, b in zip(samples[:kept], staged[len(staged) - kept :])):
+                return None
+            return new
+    return None
+
+
+class HistoryRing:
+    """The cache's refresh history on the mirror's device, one ring of
+    ``W`` slots per metric row, in the forecast kernel's layout.
+
+    On the device: raw milli values ``values`` int64 ``[M_cap, W, N_cap]``,
+    ``valid`` uint8 of the same shape, ``head`` int32 ``[M_cap]`` (the slot
+    of each row's oldest sample; the newest is at ``head - 1``) and the
+    rows' de-scale amounts ``shift_dev`` int32 ``[M_cap]``, which the fit
+    applies.  On the host: the sample objects each row holds, the largest
+    staged magnitude of each ``(row, slot)`` (0 included where a column of
+    the slot is invalid, as :func:`build_history_tensor`'s mask has it),
+    ``shift`` and ``last_stamp``.
+
+    :meth:`stage` takes a ``cache.history_snapshot()`` and finds, by the
+    identity of the sample objects, the samples each row has not staged:
+    one a metric a refresh pass, so a refit looks up at most one sample's
+    columns a metric, not the window's, and none when the sample lists the
+    same nodes in the same order as the row's last.  They are scattered into one host buffer
+    (pinned on a card), and :meth:`upload` copies it to the device in one
+    asynchronous copy and writes each into its slot, clearing what the slot
+    held.  A row whose ring does not continue what it staged (deleted and
+    registered again, rebound, another metric on the row) is restaged
+    whole; a change of ``view.intern_version``, of either capacity or of
+    the window restages every row; a row no metric holds is cleared.
+    :meth:`to_history_tensor` materialises the ring as
+    :func:`build_history_tensor` stages the same rings.  Not thread-safe:
+    the forecaster stages and fits under a lock of its own."""
+
+    def __init__(self, device: DeviceLike = None):
+        self.device = resolve_device(device)
+        self.values: Optional[torch.Tensor] = None
+        self.valid: Optional[torch.Tensor] = None
+        self.head: Optional[torch.Tensor] = None
+        self.shift_dev: Optional[torch.Tensor] = None
+        self.shift = np.zeros(0, dtype=np.int64)
+        self.last_stamp = np.zeros(0, dtype=np.float64)
+        #: live node columns of the staged view; later columns never hold
+        #: a sample
+        self.n_live = 0
+        #: node-name lookups made and slots (new samples) staged by
+        #: :meth:`stage`, since construction
+        self.lookups = 0
+        self.slots = 0
+        self._key: Optional[Tuple[int, int, int, int]] = None
+        self._head = np.zeros(0, dtype=np.int64)
+        self._slot_max = np.zeros((0, 0), dtype=np.int64)
+        self._staged: List[list] = []
+        #: row -> (the node names of its last looked-up sample, in order,
+        #: their columns, the mask of those in the view): a sample listing
+        #: the same nodes in the same order (the metrics API's usual
+        #: answer) takes its columns without a lookup
+        self._columns: Dict[int, tuple] = {}
+        self._buffer: Optional[torch.Tensor] = None
+        self._copied = None  # the event after the last copy out of the buffer
+        self._pending: Optional[tuple] = None
+
+    def _reset(self, m_cap: int, n_cap: int, window: int) -> None:
+        shape = (m_cap, window, n_cap)
+        self.values = torch.zeros(shape, dtype=torch.int64, device=self.device)
+        self.valid = torch.zeros(shape, dtype=torch.uint8, device=self.device)
+        self.head = torch.zeros(m_cap, dtype=torch.int32, device=self.device)
+        self.shift_dev = torch.zeros(m_cap, dtype=torch.int32, device=self.device)
+        self.shift = np.zeros(m_cap, dtype=np.int64)
+        self.last_stamp = np.full(m_cap, np.nan, dtype=np.float64)
+        self._head = np.zeros(m_cap, dtype=np.int64)
+        self._slot_max = np.zeros((m_cap, window), dtype=np.int64)
+        self._staged = [[] for _ in range(m_cap)]
+        self._columns = {}
+
+    def _host_buffer(self, nbytes: int) -> torch.Tensor:
+        """The staging buffer, at least ``nbytes`` long and free to write:
+        the copy out of it has left (on a card it is pinned and the copy
+        asynchronous)."""
+        if self._copied is not None:
+            self._copied.synchronize()
+            self._copied = None
+        if self._buffer is None or self._buffer.numel() < nbytes:
+            size = max(nbytes, 2 * (0 if self._buffer is None else self._buffer.numel()))
+            self._buffer = torch.empty(size, dtype=torch.uint8, pin_memory=self.device.type == "cuda")
+        return self._buffer
+
+    def _lookup(self, node_index: Dict[str, int], keys: List[str], n_cap: int):
+        """The view's columns of ``keys`` that lie in it, and the mask of
+        those keys (None: all of them)."""
+        self.lookups += len(keys)
+        try:
+            cols = np.fromiter(map(node_index.__getitem__, keys), dtype=np.int64, count=len(keys))
+        except KeyError:  # a node the view has not interned
+            cols = np.fromiter((node_index.get(node, -1) for node in keys), dtype=np.int64, count=len(keys))
+        keep = (cols >= 0) & (cols < n_cap)
+        return (cols, None) if keep.all() else (cols[keep], keep)
+
+    def stage(self, view: "DeviceView", history: Dict[str, List[Tuple[float, Dict[str, int]]]], window: int) -> None:
+        """Stage ``history`` against ``view`` on the host (see the class
+        note) for :meth:`upload`."""
+        w = int(window)
+        m_cap, n_cap = view.values.shape[0], view.node_capacity
+        key = (w, m_cap, n_cap, view.intern_version)
+        cleared: List[int] = []
+        if key != self._key:
+            self._reset(m_cap, n_cap, w)
+        # until the upload has landed the host's state is ahead of the
+        # device's: a stage or upload that raises leaves the ring to be
+        # restaged whole
+        self._key = None
+        self.n_live = len(view.node_names)
+        metric_index = view.metric_index or {}
+        node_index = view.node_index
+        appends: List[Tuple[int, int, Dict[str, int]]] = []
+        held = set()
+        for name, ring in history.items():
+            row = metric_index.get(name)
+            if row is None or row >= m_cap:
+                continue
+            held.add(row)
+            samples = ring[-w:]
+            new = _continued(self._staged[row], samples, w)
+            if new is None:
+                if self._staged[row]:
+                    cleared.append(row)
+                self._head[row] = 0
+                self._slot_max[row] = 0
+                new = len(samples)
+            for sample in samples[len(samples) - new :]:
+                slot = int(self._head[row])
+                appends.append((row, slot, sample[1]))
+                self._head[row] = (slot + 1) % w
+            self._staged[row] = samples
+            self.last_stamp[row] = samples[-1][0] if samples else np.nan
+        for row in range(m_cap):
+            if row not in held and self._staged[row]:
+                cleared.append(row)
+                self._staged[row] = []
+                self._head[row] = 0
+                self._slot_max[row] = 0
+                self.last_stamp[row] = np.nan
+
+        # the buffer: head, shift, then the new slots' values and valid
+        # bytes (the int64 sections first, so each is aligned)
+        k = len(appends)
+        self.slots += k
+        sizes = (8 * m_cap, 8 * m_cap, 8 * k * n_cap, k * n_cap)
+        nbytes = sum(sizes)
+        buffer = self._host_buffer(nbytes)[:nbytes].numpy()
+        offsets = np.cumsum((0,) + sizes)
+        values = buffer[offsets[2] : offsets[3]].view(np.int64).reshape(k, n_cap)
+        valid = buffer[offsets[3] : offsets[4]].reshape(k, n_cap)
+        values[:] = 0
+        valid[:] = 0
+        for i, (row, slot, sample) in enumerate(appends):
+            keys = list(sample)
+            columns = self._columns.get(row)
+            if columns is None or columns[0] != keys:
+                columns = (keys, *self._lookup(node_index, keys, n_cap))
+                self._columns[row] = columns
+            _keys, cols, keep = columns
+            vals = np.fromiter(sample.values(), dtype=np.int64, count=len(sample))
+            if keep is not None:
+                vals = vals[keep]
+            values[i, cols] = vals
+            valid[i, cols] = 1
+            largest = np.abs(vals).max() if len(vals) else np.int64(0)
+            # an invalid column of the slot counts 0, as the mask does
+            self._slot_max[row, slot] = largest if len(vals) == n_cap else max(largest, np.int64(0))
+        self.shift = _history_shift(self._slot_max.max(axis=1), w)
+        buffer[offsets[0] : offsets[1]].view(np.int64)[:] = self._head
+        buffer[offsets[1] : offsets[2]].view(np.int64)[:] = self.shift
+        slots = [row * w + slot for row, slot, _sample in appends]
+        self._pending = (key, cleared, offsets.tolist(), slots)
+
+    def upload(self) -> None:
+        """Copy what :meth:`stage` left to the device: one asynchronous
+        copy of the buffer, then the cleared rows zeroed and every new
+        slot written whole, on the current stream."""
+        if self._pending is None:
+            return
+        key, cleared, offsets, slots = self._pending
+        self._pending = None
+        m_cap, w, n_cap = self.values.shape
+        dev = self._buffer[: offsets[-1]].to(self.device, non_blocking=True)
+        if self.device.type == "cuda":
+            self._copied = torch.cuda.Event()
+            self._copied.record(torch.cuda.current_stream(self.device))
+        for row in cleared:
+            self.values[row].zero_()
+            self.valid[row].zero_()
+        self.head.copy_(dev[offsets[0] : offsets[1]].view(torch.int64))
+        self.shift_dev.copy_(dev[offsets[1] : offsets[2]].view(torch.int64))
+        values = dev[offsets[2] : offsets[3]].view(torch.int64).view(len(slots), n_cap)
+        valid = dev[offsets[3] : offsets[4]].view(len(slots), n_cap)
+        # a copy a slot: one a metric a pass (the CPU's index_copy_ is far
+        # slower at these widths)
+        ring_values, ring_valid = self.values.view(m_cap * w, n_cap), self.valid.view(m_cap * w, n_cap)
+        for i, slot in enumerate(slots):
+            ring_values[slot].copy_(values[i])
+            ring_valid[slot].copy_(valid[i])
+        self._key = key
+
+    def to_history_tensor(self) -> HistoryTensor:
+        """The ring as :func:`build_history_tensor` stages the same rings
+        against the same view: ``[M, N, W]``, right-aligned (step ``i``
+        from slot ``(head[m] + i) % W``), shifted to int32, on the host."""
+        m_cap, w, n_cap = self.values.shape
+        order = (self.head.to(torch.int64)[:, None] + torch.arange(w, device=self.device)) % w
+        index = order[:, :, None].expand(m_cap, w, n_cap)
+        values = torch.gather(self.values, 1, index).permute(0, 2, 1).cpu().numpy()
+        valid = torch.gather(self.valid, 1, index).permute(0, 2, 1).cpu().numpy().astype(bool)
+        scaled = (values >> self.shift[:, None, None]).astype(np.int32)
+        return HistoryTensor(values=scaled, valid=valid, shift=self.shift.copy(), last_stamp=self.last_stamp.copy())
 
 
 def _next_capacity(current: int, needed: int) -> int:

@@ -173,27 +173,37 @@ def cuda_like(array):
     return types.SimpleNamespace(device=torch.device("cuda"), data=array)
 
 
+def ring_like(m=1, w=4, n=1):
+    """A history ring's four tensors as stand-ins that report a CUDA
+    device."""
+    return (
+        cuda_like(np.zeros((m, w, n), np.int64)),
+        cuda_like(np.ones((m, w, n), np.uint8)),
+        cuda_like(np.zeros(m, np.int32)),
+        cuda_like(np.zeros(m, np.int32)),
+    )
+
+
 def test_cuda_fit_raises_with_the_kernel_never_the_plain_version(monkeypatch):
-    def broken(values, valid, horizon):
+    def broken(values, valid, head, shift, n_live, horizon):
         raise RuntimeError("forecast kernel launch failed: cudaError 98")
 
     def plain(*args, **kwargs):
         raise AssertionError("the plain version served a CUDA fit")
 
-    monkeypatch.setattr(cuda_forecast, "forecast_cuda", broken)
+    monkeypatch.setattr(cuda_forecast, "forecast_ring_cuda", broken)
+    monkeypatch.setattr(ops_forecast, "forecast_ring_reference", plain)
     monkeypatch.setattr(ops_forecast, "forecast_reference", plain)
-    values, valid = cuda_like(np.zeros((1, 1, 4), np.int32)), cuda_like(np.ones((1, 1, 4), bool))
     with pytest.raises(RuntimeError, match="cudaError 98"):
-        ops_forecast.forecast_fit(values, valid, 1)
+        ops_forecast.forecast_ring_fit(*ring_like(), 1, 1)
 
 
 def test_cuda_fit_reads_the_kernels_planes_back_in_field_order(monkeypatch):
-    """The wrapper's ``[6, M, N]`` result comes back as CPU tensors, one
-    plane a ``ForecastResult`` field in order."""
+    """The ring wrapper's ``[6, M, N]`` result comes back as CPU tensors,
+    one plane a ``ForecastResult`` field in order."""
     packed = torch.arange(6 * 2 * 3, dtype=torch.int32).reshape(6, 2, 3)
-    monkeypatch.setattr(cuda_forecast, "forecast_cuda", lambda values, valid, horizon: packed)
-    values, valid = cuda_like(np.zeros((2, 3, 4), np.int32)), cuda_like(np.ones((2, 3, 4), bool))
-    got = ops_forecast.forecast_fit(values, valid, 1)
+    monkeypatch.setattr(cuda_forecast, "forecast_ring_cuda", lambda values, valid, head, shift, n_live, horizon: packed)
+    got = ops_forecast.forecast_ring_fit(*ring_like(2, 4, 3), 3, 1)
     assert isinstance(got, ops_forecast.ForecastResult)
     for k, plane in enumerate(got):
         assert plane.device.type == "cpu" and torch.equal(plane, packed[k])
@@ -213,13 +223,20 @@ def test_refit_records_its_stages():
 
 
 def test_cuda_wrapper_refuses_cpu_tensors():
+    ring = (
+        torch.zeros((1, 4, 1), dtype=torch.int64),
+        torch.ones((1, 4, 1), dtype=torch.uint8),
+        torch.zeros(1, dtype=torch.int32),
+        torch.zeros(1, dtype=torch.int32),
+    )
     with pytest.raises(ValueError, match="not cuda"):
-        cuda_forecast.forecast_cuda(torch.zeros((1, 1, 4), dtype=torch.int32), torch.ones((1, 1, 4), dtype=torch.bool), 1)
+        cuda_forecast.forecast_ring_cuda(*ring, 1, 1)
 
 
 def test_failed_device_fit_publishes_nothing(monkeypatch):
-    """A CUDA mirror whose fit fails: ``refresh`` logs and publishes no fit
-    (the last one stands), and the plain version is never consulted."""
+    """A history ring on the card whose fit fails: ``refresh`` logs and
+    publishes no fit (the last one stands), and the plain version is never
+    consulted."""
     cache = AutoUpdatingCache()
     mirror = TensorStateMirror(device="cpu")
     mirror.attach(cache)
@@ -233,22 +250,30 @@ def test_failed_device_fit_publishes_nothing(monkeypatch):
     def plain(*args, **kwargs):
         raise AssertionError("the plain version served a CUDA fit")
 
-    def broken(values, valid, horizon):
+    def broken(values, valid, head, shift, n_live, horizon):
         raise RuntimeError("forecast kernel launch failed: cudaError 98")
 
+    monkeypatch.setattr(ops_forecast, "forecast_ring_reference", plain)
     monkeypatch.setattr(ops_forecast, "forecast_reference", plain)
-    monkeypatch.setattr(cuda_forecast, "forecast_cuda", broken)
-    # the mirror as one on the card (its views stay the CPU mirror's), and
-    # the staged history's upload to it a stand-in that reports the card
-    monkeypatch.setattr(
-        forecaster, "mirror", types.SimpleNamespace(device=torch.device("cuda"), device_view=mirror.device_view)
-    )
+    monkeypatch.setattr(cuda_forecast, "forecast_ring_cuda", broken)
+    # the ring as one on the card: the refit's staging lands in its tensors
+    # (this machine's), which the fit then finds reporting the card
+    ring = forecaster._ring
+    stage = ring.stage
+
+    def staged_on_the_card(*args):
+        stage(*args)
+        ring.upload()
+        monkeypatch.setattr(ring, "upload", lambda: None)
+        for name in ("values", "valid", "head", "shift_dev"):
+            monkeypatch.setattr(ring, name, cuda_like(getattr(ring, name)))
+
+    monkeypatch.setattr(ring, "stage", staged_on_the_card)
     cache.write_metric("m", {"a": NodeMetric(value=Quantity("2"))})
-    mirror.device_view()  # the view of this state, published before the stand-in
-    monkeypatch.setattr(torch.Tensor, "to", lambda self, *a, **k: cuda_like(self))
     errors = []
     monkeypatch.setattr(engine.klog, "error", lambda msg, *args: errors.append(msg % args))
     forecaster.refresh()
     assert errors and "cudaError 98" in errors[0]
+    assert ring.slots == 2  # the one new sample of each refit
     assert forecaster.ensure_current() is published
     assert counters.get("pas_forecast_fit_passes_total") == 1
