@@ -39,7 +39,18 @@ twin's and the host path's) beside 500 ranked on the snapshot, times
 Prioritize while 32 more passes refit (what the slowest request
 overlapped: the refit's stages, collections, lock waits), and rides a
 metrics-API outage past the last-known-good window on extrapolated
-forecasts.  Prints the card, the timings (the greedy
+forecasts.  Then the solvers phase assembles the TAS planner with
+``--batchSolver=sinkhorn`` on the card beside a CPU twin over the same
+world and replans both each of 4 periods: every card replan launches the
+greedy kernel once to round its Sinkhorn plan, each assignment is
+feasible, its guide within a stated number of micro-nats of the twin's
+and its rounding equal to the plain greedy's, and the auction fixpoint
+equals the greedy kernel on the planner phase's inputs.  Last, the fused
+phase solves BASELINE config #4 (10,000 nodes x 1,000 pods, 8 cards, 3
+resources, 3 request classes) with ``models/fused.fused_schedule``: three
+bin-pack launches and one launch of the CUDA fused-scan kernel a solve,
+held exactly against the plain solve on the card there and on edge cases.
+Prints the card, the timings (the greedy
 kernel's two stages and its rescans at the main path's inputs and three
 others; the verbs' p50/p99, their slowest requests' stages and the warm
 passes; the partition counters each timed run moved and the wire
@@ -64,6 +75,7 @@ import subprocess
 import sys
 import threading
 import time
+from collections import namedtuple
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -4103,6 +4115,546 @@ def check_forecast_limits(f: dict) -> None:
           f"forecast: Prioritize overlapping a refit p99 {o['during_p99_ms']:.3f} ms over {VERB_P99_LIMIT_MS} ms")
 
 
+# -- phase 11: the batch planner's other solvers ---------------------------------------
+
+SOLVER_PERIODS = 4
+SOLVER_SYNC_PERIOD_S = 3600.0  # the assemblies' loops never tick here: the phase drives each period itself
+# micro-nats between the card's quantised guide and the CPU twin's: logsumexp
+# sums in another order on the card (tests/test_torch_sinkhorn.py holds the
+# CPU against JAX at 16, measured 4)
+SINKHORN_GUIDE_TOL = 100
+
+
+def run_solvers(torch, np, device: str, main_inputs=None) -> dict:
+    """The TAS batch planner with ``--batchSolver=sinkhorn``, assembled by
+    ``cmd/tas.assemble`` on ``device`` beside a CPU twin, over the verbs
+    phase's world in the fake API server (10,000 nodes, 8 metrics, 4
+    policies, 1,000 pending pods; the mirror 8 x 16384); the metrics API
+    is the smoke run's own source, which it drives a pass a period.  Each
+    of ``SOLVER_PERIODS`` periods churns 30% of the values, refreshes both
+    sides and replans both; every Sinkhorn solve is recorded.  Each card
+    replan must launch the greedy kernel once and the plain greedy never on
+    the card; the card's assignment must be feasible, its quantised guide
+    within ``SINKHORN_GUIDE_TOL`` micro-nats of the twin's, its rounding
+    equal to the plain greedy on its own guide, and every pod that lands
+    elsewhere than on the twin must sit on a near-tie of the twin's guide.
+    Then, given the planner phase's kernel inputs, the auction fixpoint on
+    the card must equal the greedy kernel."""
+    from platform_aware_scheduling_tpu_torch.cmd import tas
+    from platform_aware_scheduling_tpu_torch.ops import assign as assign_ops
+    from platform_aware_scheduling_tpu_torch.ops import sinkhorn
+    from platform_aware_scheduling_tpu_torch.ops.cuda_assign import greedy_assign_cuda
+    from platform_aware_scheduling_tpu_torch.tas.metrics import NodeMetric
+    from platform_aware_scheduling_tpu_torch.testing.fake_kube import FakeKubeClient
+    from platform_aware_scheduling_tpu_torch.utils.duration import parse_duration
+    from platform_aware_scheduling_tpu_torch.utils.quantity import Quantity
+
+    out = {}
+    rng = np.random.default_rng(SEED + 4)
+    kube = FakeKubeClient()
+    start = time.perf_counter()
+    nodes = forecast_world(kube)
+    values = rng.integers(0, 100_000, size=(NUM_METRICS, NUM_NODES))
+    store = {}
+
+    def publish():
+        for j, metric in enumerate(METRIC_NAMES):
+            store[metric] = {n: NodeMetric(value=Quantity(f"{int(v)}m")) for n, v in zip(nodes, values[j].tolist())}
+
+    publish()
+    released = threading.Event()
+    args = tas.build_arg_parser().parse_args(
+        ["--batchPlanner", "--batchSolver=sinkhorn", f"--syncPeriod={SOLVER_SYNC_PERIOD_S:g}s"]
+    )
+    solves = []  # (device type, (score, eligible, capacity), SinkhornResult) of each solve
+    plain_devices = []  # the device of each plain greedy call
+    real_sinkhorn, real_plain = sinkhorn.sinkhorn_assign, assign_ops.greedy_assign_reference
+
+    def recorded_sinkhorn(score, eligible, capacity, *a, **kw):
+        result = real_sinkhorn(score, eligible, capacity, *a, **kw)
+        solves.append((score.device.type, (score, eligible, capacity), result))
+        return result
+
+    def recorded_plain(score, eligible, capacity):
+        plain_devices.append(score.device.type)
+        return real_plain(score, eligible, capacity)
+
+    sides = {}
+    sinkhorn.sinkhorn_assign = recorded_sinkhorn
+    assign_ops.greedy_assign_reference = recorded_plain
+    try:
+        for side, dev in (("dut", device), ("twin", "cpu")):
+            client = DrivenMetrics(threading.get_ident(), store, released)
+            cache, mirror, ext, _controller, _enforcer, stop = tas.assemble(
+                kube,
+                client,
+                parse_duration(args.syncPeriod),
+                enable_batch_planner=args.batchPlanner,
+                batch_solver=args.batchSolver,
+                device=dev,
+            )
+            sides[side] = SimpleNamespace(cache=cache, mirror=mirror, planner=ext.planner, stop=stop, client=client)
+        dut, twin = sides["dut"], sides["twin"]
+        check(dut.planner.solver == twin.planner.solver == "sinkhorn", "solvers: the assembly's planner is not Sinkhorn")
+        check(dut.planner.device.type == device, f"solvers: the planner is not on {device}")
+        for side in sides.values():
+            wait_for(
+                lambda s=side: len(s.cache.registered_metric_names()) == NUM_METRICS
+                and all(s.mirror.policy("default", f"pol-{k}") is not None for k in range(4)),
+                60,
+                "solvers: the policies through the CRD informer",
+            )
+            wait_for(
+                lambda s=side: s.planner.pending_count() == NUM_PODS and len(s.planner._node_alloc) == NUM_NODES,
+                60,
+                "solvers: the pods and nodes through the planner's informers",
+            )
+
+        def drive():
+            moved = rng.random(values.shape) < CHURN
+            values[...] = np.where(moved, rng.integers(0, 100_000, size=values.shape), values)
+            publish()
+            for side in sides.values():
+                side.cache.update_all_metrics(side.client)
+
+        drive()
+        out["setup_s"] = time.perf_counter() - start
+        dut.planner.replan()  # warm-up: the first view upload and solve
+        twin.planner.replan()
+        keys = dut.planner.pending_keys()
+        out.update(walls=[], launches=[], plain_on_card=0, planned=[], differing=[], guide_err=[], plan_err=[],
+                   near_tie_gap=[], twin_s=[])
+        for _period in range(SOLVER_PERIODS):
+            drive()
+            solves.clear()
+            plain_devices.clear()
+            before = greedy_assign_cuda.LAUNCHES
+            t0 = time.perf_counter()
+            planned = dut.planner.replan()
+            if device != "cpu":
+                torch.cuda.synchronize()
+            out["walls"].append(time.perf_counter() - t0)
+            out["launches"].append(greedy_assign_cuda.LAUNCHES - before)
+            out["plain_on_card"] += plain_devices.count("cuda")
+            t0 = time.perf_counter()
+            twin_planned = twin.planner.replan()
+            out["twin_s"].append(time.perf_counter() - t0)
+            check(twin_planned == planned, f"solvers: {planned} pods planned on the card, {twin_planned} on the CPU")
+            check([d for d, _i, _r in solves] == [device, "cpu"], f"solvers: solves on {[d for d, _i, _r in solves]}")
+            (_d, (score, eligible, capacity), card), (_d2, (score_c, eligible_c, capacity_c), cpu) = solves
+            check(
+                torch.equal(score.cpu(), score_c) and torch.equal(eligible.cpu(), eligible_c)
+                and torch.equal(capacity.cpu(), capacity_c),
+                "solvers: the card and the CPU twin solved different problems",
+            )
+            got = card.assignment.node_for_pod.cpu()
+            want = cpu.assignment.node_for_pod
+            placed = got >= 0
+            rows = torch.nonzero(placed).flatten()
+            check(bool(eligible_c[rows, got[placed].long()].all()), "solvers: a pod planned onto an ineligible node")
+            counts = torch.bincount(got[placed].long(), minlength=capacity_c.shape[0])
+            check(bool((counts <= capacity_c.long()).all()), "solvers: a node planned past its capacity")
+            guide_err = int((card.guide.cpu() - cpu.guide).abs().max())
+            check(guide_err <= SINKHORN_GUIDE_TOL,
+                  f"solvers: the card's guide is {guide_err} micro-nats from the twin's (limit {SINKHORN_GUIDE_TOL})")
+            rounded = real_plain(card.guide, eligible, capacity)
+            check(
+                torch.equal(rounded.node_for_pod, card.assignment.node_for_pod)
+                and torch.equal(rounded.capacity_left, card.assignment.capacity_left),
+                "solvers: the card's rounding differs from the plain greedy on its own guide",
+            )
+            differing = torch.nonzero(got != want).flatten().tolist()
+            gap = 0
+            for pod in differing:
+                a, b = int(got[pod]), int(want[pod])
+                check(a >= 0 and b >= 0, f"solvers: pod {pod} placed on one side only ({a}, {b})")
+                gap = max(gap, abs(int(cpu.guide[pod, a]) - int(cpu.guide[pod, b])))
+            check(gap <= 2 * SINKHORN_GUIDE_TOL,
+                  f"solvers: a pod off the twin's node is {gap} micro-nats from a tie (limit {2 * SINKHORN_GUIDE_TOL})")
+            plans = {k: dut.planner._plan.get(k, (None,))[0] for k in keys}
+            twin_plans = {k: twin.planner._plan.get(k, (None,))[0] for k in keys}
+            check(sum(plans[k] != twin_plans[k] for k in keys) == len(differing),
+                  "solvers: the planners' plans differ beyond the solves' assignments")
+            out["planned"].append(planned)
+            out["differing"].append(len(differing))
+            out["near_tie_gap"].append(gap)
+            out["guide_err"].append(guide_err)
+            out["plan_err"].append(float((card.plan.cpu() - cpu.plan).abs().max()))
+        want_launches = [int(device != "cpu")] * SOLVER_PERIODS
+        check(out["launches"] == want_launches, f"solvers: greedy_assign launches a replan {out['launches']}")
+        check(out["plain_on_card"] == 0, f"solvers: the plain greedy ran {out['plain_on_card']} times on the card's path")
+        out["shape"] = list(score.shape)
+        if device != "cpu":
+            launches = greedy_assign_cuda.LAUNCHES
+            logits = sinkhorn.sinkhorn_logits(score, eligible, 0.05)
+            out["iterations_ms"] = cuda_ms(
+                torch, lambda: sinkhorn.sinkhorn_scaling(logits, eligible, capacity, sinkhorn.DEFAULT_ITERATIONS), 3
+            )
+            out["solve_ms"] = cuda_ms(torch, lambda: real_sinkhorn(score, eligible, capacity), 3)
+            greedy_assign_cuda.LAUNCHES = launches  # the timing's launches are not the main path's
+        if main_inputs is not None:
+            launches = greedy_assign_cuda.LAUNCHES
+            auction, rounds = assign_ops.auction_assign(*main_inputs)
+            greedy = assign_ops.greedy_assign(*main_inputs)
+            check(
+                torch.equal(auction.node_for_pod, greedy.node_for_pod)
+                and torch.equal(auction.capacity_left, greedy.capacity_left),
+                "solvers: the auction fixpoint differs from the greedy kernel on the planner phase's inputs",
+            )
+            out["auction_rounds"] = rounds
+            out["auction_placed"] = int((auction.node_for_pod >= 0).sum())
+            if device != "cpu":
+                out["auction_ms"] = cuda_ms(torch, lambda: assign_ops.auction_assign(*main_inputs), 3)
+            greedy_assign_cuda.LAUNCHES = launches
+    finally:
+        sinkhorn.sinkhorn_assign = real_sinkhorn
+        assign_ops.greedy_assign_reference = real_plain
+        for side in sides.values():
+            side.stop.set()
+        released.set()  # a held refresh loop raises, ends its pass and stops
+    return out
+
+
+def solver_lines(v: dict, card: str) -> list:
+    walls = [w * 1e3 for w in v["walls"]]
+    lines = [
+        f"solvers world: {NUM_NODES} nodes x {NUM_METRICS} metrics x {NUM_PODS} pending pods, 4 policies, "
+        f"--batchSolver=sinkhorn through cmd/tas.assemble beside a CPU twin; set-up {v['setup_s']:.3f} s; "
+        f"{SOLVER_PERIODS} churned periods, solve {'x'.join(map(str, v['shape']))}, planned {v['planned']}; "
+        f"greedy_assign launches a replan {v['launches']}, plain greedy on the card {v['plain_on_card']}",
+        f"solvers sinkhorn: replan wall p50 {statistics.median(walls):.3f} ms (all: "
+        f"{', '.join(f'{t:.3f}' for t in walls)}); the CPU twin's replan {statistics.median(v['twin_s']):.3f} s; "
+        f"every assignment feasible and equal to the plain greedy on the card's own guide; guide |card - CPU| "
+        f"max {v['guide_err']} micro-nats (limit {SINKHORN_GUIDE_TOL}); plan |card - CPU| max "
+        f"{max(v['plan_err']):.3g}; pods off the twin's node {v['differing']}, the widest gap of their two nodes' "
+        f"CPU guides {v['near_tie_gap']} micro-nats (limit {2 * SINKHORN_GUIDE_TOL}) [{card}]",
+    ]
+    if "iterations_ms" in v:
+        lines.append(
+            f"solvers sinkhorn device: {v['iterations_ms']:.3f} ms the 50 iterations, {v['solve_ms']:.3f} ms the "
+            f"whole solve with its greedy rounding (CUDA events, 3 calls) [{card}]"
+        )
+    if "auction_rounds" in v:
+        timed = f", {v['auction_ms']:.3f} ms a call (CUDA events, one host read a round)" if "auction_ms" in v else ""
+        lines.append(
+            f"solvers auction on the planner phase's inputs: equal to the greedy kernel, {v['auction_placed']} pods "
+            f"placed in {v['auction_rounds']} rounds{timed} [{card}]"
+        )
+    return lines
+
+
+# -- phase 12: the fused TAS+GAS solve -----------------------------------------------
+
+FusedProblem = namedtuple("FusedProblem", "state pods req_class gas requests max_gpus")
+FUSED_SOLVES = 3  # main-path solves, each T bin-pack launches and one scan launch
+
+
+def fused_problem(torch, np, device: str, num_nodes=10_000, num_pods=1_000, num_cards=8, num_res=3,
+                  num_classes=3, seed=21) -> FusedProblem:
+    """BASELINE config #4 (the fused TAS+GAS solve, 10,000 nodes x 1,000
+    pods): a numpy copy of ``benchmarks/configs._fused_problem``'s recipe,
+    the same draws in the same order, over the port's ``example_inputs``
+    (4 metrics); 8 cards a node, 3 resources, 3 request classes of 2
+    containers with 1-2 GPUs each."""
+    from platform_aware_scheduling_tpu_torch.models.batch_scheduler import example_inputs
+    from platform_aware_scheduling_tpu_torch.models.fused import FusedRequests
+    from platform_aware_scheduling_tpu_torch.ops.binpack import BinpackNodeState
+
+    rng = np.random.default_rng(seed)
+    state, pods = example_inputs(num_metrics=4, num_nodes=num_nodes, num_pods=num_pods, seed=seed, device=device)
+    cap = rng.integers(600, 1200, size=(num_nodes, num_res)).astype(np.int64)
+    used = rng.integers(0, 400, size=(num_nodes, num_cards, num_res)).astype(np.int64)
+    used = np.minimum(used, cap[:, None, :])
+    need = rng.integers(40, 260, size=(num_classes, 2, num_res)).astype(np.int64)
+    need_active = rng.random((num_classes, 2, num_res)) > 0.2
+    num_gpus = rng.integers(1, 3, size=(num_classes, 2)).astype(np.int32)
+    container_active = np.ones((num_classes, 2), dtype=bool)
+    req_class = rng.integers(0, num_classes, size=num_pods).astype(np.int32)
+
+    def put(array):
+        return torch.from_numpy(np.ascontiguousarray(array)).to(device)
+
+    gas = BinpackNodeState(
+        used=put(used),
+        capacity=put(cap),
+        cap_present=put(np.ones((num_nodes, num_res), dtype=bool)),
+        card_valid=put(np.ones((num_nodes, num_cards), dtype=bool)),
+        card_real=put(np.ones((num_nodes, num_cards), dtype=bool)),
+        card_order=put(np.broadcast_to(np.arange(num_cards, dtype=np.int32), (num_nodes, num_cards))),
+    )
+    requests = FusedRequests(put(need), put(need_active), put(num_gpus), put(container_active))
+    return FusedProblem(state, pods, put(req_class), gas, requests, int(num_gpus.max()))
+
+
+def fused_edge_cases(torch, np, device: str) -> list:
+    """(name, FusedProblem): small problems at the edges the kernel must
+    keep, each from :func:`fused_problem` edited in numpy."""
+    int64_max = 2**63 - 1
+
+    def edited(seed, num_nodes=300, num_pods=120, edit=None, **kw):
+        base = fused_problem(torch, np, "cpu", num_nodes=num_nodes, num_pods=num_pods, seed=seed, **kw)
+        parts = {
+            "state": {k: v.numpy().copy() for k, v in base.state._asdict().items() if k != "dontschedule"},
+            "pods": {k: v.numpy().copy() for k, v in base.pods._asdict().items()},
+            "gas": {k: v.numpy().copy() for k, v in base.gas._asdict().items()},
+            "requests": {k: v.numpy().copy() for k, v in base.requests._asdict().items()},
+            "req_class": base.req_class.numpy().copy(),
+        }
+        rng = np.random.default_rng(seed)
+        if edit is not None:
+            edit(parts, rng)
+
+        def put(array):
+            return torch.from_numpy(np.ascontiguousarray(array)).to(device)
+
+        rules = type(base.state.dontschedule)(*(v.to(device) for v in base.state.dontschedule))
+        state = base.state._replace(dontschedule=rules, **{k: put(v) for k, v in parts["state"].items()})
+        pods = type(base.pods)(**{k: put(v) for k, v in parts["pods"].items()})
+        gas = type(base.gas)(**{k: put(v) for k, v in parts["gas"].items()})
+        requests = type(base.requests)(**{k: put(v) for k, v in parts["requests"].items()})
+        max_gpus = int(parts["requests"]["num_gpus"].max())
+        return FusedProblem(state, pods, put(parts["req_class"]), gas, requests, max_gpus)
+
+    def near_wrap(parts, rng):
+        gas = parts["gas"]
+        gas["capacity"][:] = int64_max - rng.integers(0, 200, size=gas["capacity"].shape)
+        near = rng.random(gas["used"].shape[:2]) < 0.5
+        gas["used"][:] = np.where(near[..., None], int64_max - rng.integers(0, 300, size=gas["used"].shape),
+                                  gas["used"])
+
+    def order_past_2_30(parts, rng):
+        gas = parts["gas"]
+        gas["card_order"][::3, 0] = 2**30 + 1 + rng.integers(0, 5, size=gas["card_order"][::3, 0].shape)
+        gas["card_order"][1::3, 1] = 2**30
+        gas["card_order"][2::3] = gas["card_order"][2::3, ::-1]  # order unlike lane order
+        gas["used"][::2, 4:, :] = gas["capacity"][::2, None, :]  # full cards beside them
+        gas["card_valid"][5::7, 3] = False
+        gas["card_real"][6::7, 2] = False
+
+    def fits_nowhere(parts, rng):
+        parts["requests"]["need"][1, 0, 0] = 10**6
+        parts["requests"]["need_active"][1, 0, 0] = True
+
+    def capacity_zero(parts, rng):
+        parts["state"]["capacity"][::4] = 0
+        parts["gas"]["cap_present"][1::5, 0] = False
+        parts["gas"]["capacity"][2::5, 1] = 0
+
+    def inactive(parts, rng):
+        parts["requests"]["container_active"][0, 1] = False
+        parts["requests"]["need_active"][:, :, 1] = False
+        parts["requests"]["need"][:, :, 1] = 10**15
+
+    def contention(parts, rng):
+        parts["state"]["capacity"][:] = 1
+        parts["state"]["metric_values"] //= 200_000  # five values: ties broken by index
+        parts["pods"]["candidates"][::9] = False  # pods with no candidate
+
+    def wide(parts, rng):
+        parts["requests"]["num_gpus"][:, 0] = 3
+        parts["gas"]["used"][:, ::2, :] = 0
+
+    return [
+        ("near-wrap usage", edited(31, edit=near_wrap)),
+        ("card_order past 2^30", edited(32, edit=order_past_2_30)),
+        ("a class that fits nowhere", edited(33, edit=fits_nowhere)),
+        ("capacity 0 and absent resources", edited(34, edit=capacity_zero)),
+        ("inactive containers and resources", edited(35, edit=inactive)),
+        ("contention and ties", edited(36, num_nodes=64, num_pods=200, edit=contention)),
+        ("33 cards, 5 resources, 5 classes, 3 GPUs", edited(37, num_nodes=500, num_pods=150, num_cards=33,
+                                                          num_res=5, num_classes=5, edit=wide)),
+        ("5 nodes", edited(38, num_nodes=5, num_pods=40)),
+        ("1000 nodes, 1 pod", edited(39, num_nodes=1000, num_pods=1)),
+    ]
+
+
+def fused_outputs_equal(torch, name: str, got, want) -> float:
+    """All five outputs of a fused solve, exactly; returns the largest
+    absolute difference seen (0 when exact)."""
+    err = 0.0
+    for label, g, w in zip(got._fields, got, want):
+        check(g.dtype == w.dtype and g.shape == w.shape, f"fused {name}: {label} has another form")
+        if g.numel():
+            err = max(err, float((g.to(torch.float64) - w.to(torch.float64)).abs().max()))
+        check(torch.equal(g, w), f"fused {name}: {label} differs from the plain version")
+    return err
+
+
+def check_fused_limits(torch, problem) -> None:
+    """Shapes past the kernel's limits and classes outside [0, T) are
+    refused before a launch."""
+    from platform_aware_scheduling_tpu_torch.models.batch_scheduler import score_and_filter
+    from platform_aware_scheduling_tpu_torch.models.fused import _all_fits
+    from platform_aware_scheduling_tpu_torch.ops import cuda_fused
+
+    _v, score, eligible = score_and_filter(problem.state, problem.pods)
+    fits0 = _all_fits(problem.gas, problem.requests, problem.max_gpus)
+    t = problem.requests.need.shape[0]
+    launches = cuda_fused.fused_schedule_cuda.LAUNCHES
+    bad = problem.req_class.clone()
+    bad[-1] = t
+    n, r = problem.gas.capacity.shape
+    ones = torch.ones((n, 65), dtype=torch.bool, device=score.device)
+    wide = problem.gas._replace(
+        used=torch.zeros((n, 65, r), dtype=torch.int64, device=score.device),
+        card_valid=ones,
+        card_real=ones,
+        card_order=torch.zeros((n, 65), dtype=torch.int32, device=score.device),
+    )
+    for what, args, says in (
+        ("a class outside [0, T)", (score, eligible, problem.state.capacity, bad, fits0, problem.gas), "classes span"),
+        ("65 cards", (score, eligible, problem.state.capacity, problem.req_class, fits0, wide), "card lanes"),
+    ):
+        try:
+            cuda_fused.fused_schedule_cuda(*args, problem.requests, problem.max_gpus)
+        except ValueError as exc:
+            check(says in str(exc), f"fused: {what} refused for another reason: {exc}")
+            continue
+        raise SmokeError(f"fused: {what} was not refused")
+    check(cuda_fused.fused_schedule_cuda.LAUNCHES == launches, "fused: a refused call counted a launch")
+    print("fused parity: a class outside [0, T) and 65 cards refused before a launch")
+
+
+def run_fused(torch, np, device: str = "cuda") -> dict:
+    """BASELINE config #4 on the card: the fused kernel held exactly
+    against the plain solve on edge cases, then the main path,
+    :func:`fused_problem` at full size, solved ``FUSED_SOLVES`` times by
+    ``models/fused.fused_schedule`` with every count set to 0 just before
+    (each solve T bin-pack launches and one scan launch), then once by the
+    plain version on the card, all five outputs equal; then the times."""
+    from platform_aware_scheduling_tpu_torch.models import fused
+    from platform_aware_scheduling_tpu_torch.ops import cuda_fused
+    from platform_aware_scheduling_tpu_torch.ops.cuda_binpack import binpack_cuda
+
+    on_card = device != "cpu"
+    out = {"cases": 0, "max_abs_err": 0.0}
+    for name, problem in fused_edge_cases(torch, np, device):
+        got = fused.fused_schedule(*problem)
+        want = fused.fused_schedule_reference(*problem)
+        err = fused_outputs_equal(torch, f"parity {name}", got, want)
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        out["cases"] += 1
+        print(
+            f"fused parity {name}: exact ({int((got.node_for_pod >= 0).sum())} of {got.node_for_pod.numel()} pods "
+            f"placed, {int((got.used != problem.gas.used).any(dim=-1).sum())} cards booked, "
+            f"{int(got.fits.sum())} of {got.fits.numel()} class fits left)"
+        )
+    problem = fused_problem(torch, np, device)
+    if on_card:
+        check_fused_limits(torch, problem)
+    t = problem.requests.need.shape[0]
+    fused_kernel = cuda_fused.fused_schedule_cuda
+    fused_kernel.LAUNCHES = 0
+    binpack_cuda.LAUNCHES = 0
+    walls = []
+    for _ in range(FUSED_SOLVES):
+        t0 = time.perf_counter()
+        result = fused.fused_schedule(*problem)
+        if on_card:
+            torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    out["launches"] = fused_kernel.LAUNCHES
+    out["binpack_launches"] = binpack_cuda.LAUNCHES
+    solves = FUSED_SOLVES if on_card else 0
+    check(out["launches"] == solves, f"fused: {out['launches']} scan launches for {solves} solves")
+    check(out["binpack_launches"] == solves * t,
+          f"fused: {out['binpack_launches']} bin-pack launches for {solves} solves of {t} classes")
+    nodes = result.node_for_pod
+    p, n = problem.pods.candidates.shape
+    placed = nodes >= 0
+    check(bool((nodes < n).all()), "fused: a pod placed past the last node")
+    booked = torch.bincount(nodes[placed].long(), minlength=n).to(torch.int32)
+    check(torch.equal(result.capacity_left, problem.state.capacity - booked), "fused: capacity_left is not capacity - bookings")
+    check(bool((result.capacity_left >= 0).all()), "fused: a node booked past its capacity")
+    check(bool((result.used >= problem.gas.used).all()), "fused: a card's usage went down")
+    check(bool((result.used <= problem.gas.capacity.unsqueeze(1)).all()), "fused: a card booked past its capacity")
+    out["placed"] = int(placed.sum())
+    out["walls"] = walls
+    t0 = time.perf_counter()
+    want = fused.fused_schedule_reference(*problem)
+    if on_card:
+        torch.cuda.synchronize()
+    out["plain_solve_s"] = time.perf_counter() - t0
+    err = fused_outputs_equal(torch, f"main path {n} x {p}", result, want)
+    out["max_abs_err"] = max(out["max_abs_err"], err)
+    out["shape"] = [p, n, *problem.gas.used.shape[1:], t, problem.requests.need.shape[1], problem.max_gpus]
+    if on_card:
+        out["times"] = time_fused(torch, problem)
+    return out
+
+
+def time_fused(torch, problem) -> dict:
+    """The scan kernel's times on the main path's inputs, beside the plain
+    scan's and the least time the card could take: the bytes the function
+    must move (each input read once, each output written once) over the
+    card's memory rate.  ``ms`` is the kernel's device time, 3 launches
+    captured in a CUDA graph and replayed between events (or, where the
+    capture of a cooperative launch is refused, 3 launches back to back
+    between events, ``graph_note`` saying so); ``call_ms`` a wrapper call's
+    (its class check reads the classes back); ``profiler_ms``
+    ``torch.profiler``'s reading of the kernel."""
+    from platform_aware_scheduling_tpu_torch.models import fused
+    from platform_aware_scheduling_tpu_torch.models.batch_scheduler import score_and_filter
+    from platform_aware_scheduling_tpu_torch.ops import cuda_fused
+
+    _violating, score, eligible = score_and_filter(problem.state, problem.pods)
+    fits0 = fused._all_fits(problem.gas, problem.requests, problem.max_gpus)
+    args = (score, eligible, problem.state.capacity, problem.req_class, fits0, problem.gas, problem.requests,
+            problem.max_gpus)
+    p, n = score.shape
+    _n, c, r = problem.gas.used.shape
+    t = fits0.shape[0]
+    inputs = (score, eligible, problem.state.capacity, problem.req_class, fits0, *problem.gas, *problem.requests)
+    bytes_needed = sum(x.numel() * x.element_size() for x in inputs) + 4 * p + 4 * n + 8 * n * c * r + t * n
+    launches = cuda_fused.fused_schedule_cuda.LAUNCHES
+    launch = lambda: cuda_fused.launch(*args)  # noqa: E731
+    out = {"shape": [p, n, c, r, t], "bytes": bytes_needed, "bound_ms": bytes_needed / HBM_BYTES_PER_S * 1e3}
+    try:
+        out["graph_ms"] = graph_ms(torch, launch, 3, replays=3)
+        out["graph_note"] = None
+    except RuntimeError as exc:
+        torch.cuda.synchronize()
+        out["graph_ms"] = None
+        out["graph_note"] = f"capture refused: {str(exc).splitlines()[0][:160]}"
+    out["events_ms"] = cuda_ms(torch, launch, 3)
+    out["ms"] = out["graph_ms"] if out["graph_ms"] is not None else out["events_ms"]
+    out["device_ms"] = out["ms"]
+    out["profiler_ms"] = profiled_ms(torch, launch, ("fused_schedule_kernel",), 3)
+    out["call_ms"] = cuda_ms(torch, lambda: cuda_fused.fused_schedule_cuda(*args), 3)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fused.fused_scan_reference(*args)
+    end.record()
+    torch.cuda.synchronize()
+    out["plain_ms"] = start.elapsed_time(end)
+    cuda_fused.fused_schedule_cuda.LAUNCHES = launches  # the timing's launches are not the main path's
+    return out
+
+
+def fused_lines(f: dict, card: str) -> list:
+    p, n, c, r, classes, containers, k = f["shape"]
+    walls = [w * 1e3 for w in f["walls"]]
+    lines = [
+        f"fused world: BASELINE config #4, {n} nodes x {p} pods, {c} cards x {r} resources, {classes} classes of "
+        f"{containers} containers (max_gpus {k}), seed 21; {f['cases']} edge cases and the main path exact against "
+        f"the plain version on all five outputs; {FUSED_SOLVES} solves: fused_schedule launches {f['launches']}, "
+        f"binpack launches {f['binpack_launches']}; {f['placed']} pods placed; solve wall p50 "
+        f"{statistics.median(walls):.3f} ms; the plain solve {f['plain_solve_s']:.3f} s [{card}]",
+    ]
+    if "times" not in f:
+        return lines
+    t = f["times"]
+    device = (f"{t['graph_ms']:.4f} ms (3 launches in a CUDA graph)" if t["graph_ms"] is not None
+              else f"{t['events_ms']:.4f} ms (3 launches between events; {t['graph_note']})")
+    return lines + [
+        f"fused_schedule main path {p}x{n}: kernel device {device}, events {t['events_ms']:.4f} ms, "
+        f"torch.profiler {ms_or_not_measured(t['profiler_ms'])}, a wrapper call {t['call_ms']:.4f} ms; "
+        f"{t['ms'] / p * 1e3:.3f} us a pod; plain scan {t['plain_ms']:.3f} ms; bound {t['bound_ms']:.4f} ms "
+        f"({t['bytes']} bytes); library call: none, no single PyTorch call computes the fused scan [{card}]",
+    ]
+
+
 def main() -> int:
     if not (ROOT / PACKAGE / "__init__.py").is_file():
         print(f"chip_smoke: {PACKAGE}/ is not beside this script", file=sys.stderr)
@@ -4243,6 +4795,17 @@ def main() -> int:
         f"refit p99 <= {VERB_P99_LIMIT_MS} ms, full-ring refit p50 <= {FORECAST_REFIT_P50_LIMIT_MS:g} ms"
     )
 
+    solvers = run_solvers(torch, np, "cuda", main_inputs=main_inputs)
+    for line in solver_lines(solvers, card):
+        print(line)
+    sinkhorn_p50 = statistics.median(solvers["walls"]) * 1e3
+    check(sinkhorn_p50 <= REPLAN_P50_LIMIT_MS, f"solvers: Sinkhorn replan wall p50 {sinkhorn_p50:.3f} ms is over its limit")
+    print(f"limits met: Sinkhorn replan p50 <= {REPLAN_P50_LIMIT_MS} ms")
+
+    fused_out = run_fused(torch, np)
+    for line in fused_lines(fused_out, card):
+        print(line)
+
     # the kernels' device times last, so the profiler and the graphs' pools
     # are not in the host-timed phases
     timed = {
@@ -4264,6 +4827,7 @@ def main() -> int:
 
     gas_times = gas_out["times"]
     forecast_times = forecast_out["times"]
+    fused_times = fused_out["times"]
     kernels = [
         {
             "name": "greedy_assign",
@@ -4288,6 +4852,7 @@ def main() -> int:
             "verbs_launches": verbs["launches"],
             "service_launches": service["launches"],
             "faults_launches": service["faults"]["launches"],
+            "sinkhorn_launches": sum(solvers["launches"]),
         },
         {
             "name": "binpack",
@@ -4333,6 +4898,29 @@ def main() -> int:
             "registers": forecast_resources["registers"],
             "fit_passes": forecast_out["fit_passes"],
             "refit_p50_ms": statistics.median(forecast_out["churn_refit_ms"][FORECAST_WINDOW - 1 :]),
+        },
+        {
+            "name": "fused_schedule",
+            "route": "cuda",
+            "source": f"{PACKAGE}/csrc/fused_schedule.cu",
+            "replaces": "platform_aware_scheduling_tpu/models/fused.py:171",
+            "launches": fused_out["launches"],
+            "max_abs_err": fused_out["max_abs_err"],
+            "ms": fused_times["ms"],
+            "device_ms": fused_times["device_ms"],
+            "graph_ms": fused_times["graph_ms"],
+            "events_ms": fused_times["events_ms"],
+            "call_ms": fused_times["call_ms"],
+            "profiler_ms": fused_times["profiler_ms"],
+            "plain_ms": fused_times["plain_ms"],
+            "bound_ms": fused_times["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": None,
+            "parity": True,
+            "shape": fused_times["shape"],
+            "bytes": fused_times["bytes"],
+            "binpack_launches": fused_out["binpack_launches"],
+            "parity_cases": fused_out["cases"],
         },
     ]
     print(json.dumps({"kernels": kernels}))

@@ -20,9 +20,8 @@ lease's holder writes labels.
 
 The flags of the JAX main's other planes (profiler, rebalancer, gang and
 the gang journal, admission, shard, SLO, control, flight recorder, solve
-observatory, ``--batchSolver=sinkhorn``,
-``--serving=async``) are absent until their planes are ported, so
-argparse refuses them.
+observatory, ``--serving=async``) are absent until their planes are
+ported, so argparse refuses them.
 """
 
 from __future__ import annotations
@@ -85,9 +84,10 @@ def build_arg_parser() -> argparse.ArgumentParser:
     parser.add_argument("--batchPlanner", action="store_true",
                         help="solve the whole pending set each sync period "
                         "and steer pods onto their batch-assigned nodes")
-    parser.add_argument("--batchSolver", default="greedy", choices=["greedy"],
+    parser.add_argument("--batchSolver", default="greedy",
+                        choices=["greedy", "sinkhorn"],
                         help="batch planner solver: greedy (sequential-"
-                        "equivalent)")
+                        "equivalent) or sinkhorn (globally coordinated)")
     parser.add_argument("--nodeCacheCapable", action="store_true",
                         help="serve Prioritize/Filter from Args.NodeNames "
                         "(register the extender nodeCacheCapable: true); "

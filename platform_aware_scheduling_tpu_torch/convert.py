@@ -4,7 +4,8 @@ The system's "weights" are its cluster state.  The JAX package holds
 int64 as the ``(hi: int32, lo: uint32)`` split of its ``ops/i64.py``;
 these functions take those arrays as numpy arrays, join every int64
 exactly, and build the port's ``ClusterState`` / ``PendingPods`` and GAS
-``BinpackNodeState`` / ``BinpackRequest`` on ``device``.  The forecast
+``BinpackNodeState`` / ``BinpackRequest`` and the fused solve's
+``FusedRequests`` on ``device``.  The forecast
 plane's staged history and fit outputs are int32 and bool already: they
 cross as they are, onto ``device``.
 """
@@ -18,6 +19,7 @@ from platform_aware_scheduling_tpu_torch.models.batch_scheduler import (
     ClusterState,
     PendingPods,
 )
+from platform_aware_scheduling_tpu_torch.models.fused import FusedRequests
 from platform_aware_scheduling_tpu_torch.ops.binpack import BinpackNodeState, BinpackRequest
 from platform_aware_scheduling_tpu_torch.ops.forecast import ForecastResult
 from platform_aware_scheduling_tpu_torch.ops.i64 import join_int64
@@ -104,6 +106,24 @@ def binpack_request_from_numpy(
     """A JAX ``BinpackRequest`` (split int64) as the port's."""
     device = resolve_device(device)
     return BinpackRequest(
+        need=_put(join_int64(need_hi, need_lo), np.int64, device),
+        need_active=_put(need_active, bool, device),
+        num_gpus=_put(num_gpus, np.int32, device),
+        container_active=_put(container_active, bool, device),
+    )
+
+
+def fused_requests_from_numpy(
+    need_hi,  # int32 [T, Tc, R]
+    need_lo,  # uint32 [T, Tc, R]
+    need_active,  # bool [T, Tc, R]
+    num_gpus,  # int32 [T, Tc]
+    container_active,  # bool [T, Tc]
+    device: DeviceLike = None,
+) -> FusedRequests:
+    """A JAX ``FusedRequests`` (split int64) as the port's."""
+    device = resolve_device(device)
+    return FusedRequests(
         need=_put(join_int64(need_hi, need_lo), np.int64, device),
         need_active=_put(need_active, bool, device),
         num_gpus=_put(num_gpus, np.int32, device),

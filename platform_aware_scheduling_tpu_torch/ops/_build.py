@@ -31,7 +31,7 @@ NVCC_FLAGS = (
     "-Xcompiler",
     "-fPIC",
 )
-KERNELS = ("greedy_assign", "binpack", "forecast")
+KERNELS = ("greedy_assign", "binpack", "forecast", "fused_schedule")
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -1,11 +1,14 @@
 """Greedy capacity-constrained batch assignment.
 
 The port's counterpart of ``platform_aware_scheduling_tpu/ops/assign.py``
-(``greedy_assign_kernel``) and ``ops/pallas_assign.py``
+(``greedy_assign_kernel``, ``lex_argmin``, ``_row_lex_argmax`` and
+``auction_assign_kernel``) and ``ops/pallas_assign.py``
 (``greedy_assign_pallas``).  For each pod in order, take the node with the
 largest int64 score among ``eligible[p] & (capacity > 0)``, ties to the
 lowest node index, then decrement that node's capacity.  Greedy in pod
 order is what the sequential scheduler would decide, one pod at a time.
+:func:`auction_assign` reaches the same result as a fixpoint of row
+argmaxes, in a handful of rounds of ``[P, N]`` passes on the device.
 
 :func:`greedy_assign` dispatches on where the tensors live: the plain
 version for CPU tensors, the hand-written CUDA kernel
@@ -18,6 +21,7 @@ from __future__ import annotations
 from typing import NamedTuple, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from platform_aware_scheduling_tpu_torch.ops import i64
 
@@ -47,6 +51,69 @@ def greedy_assign_reference(
     for pod in range(p):
         _assign_one(score[pod], eligible[pod].bool() & (cap > 0), lanes, pod, node_for_pod, cap)
     return AssignResult(node_for_pod=node_for_pod, capacity_left=cap)
+
+
+def lex_argmin(key: torch.Tensor, valid: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Index of the smallest int64 key among valid lanes of the last axis,
+    ties to the lowest index: (idx int32, found bool), idx -1 where no
+    lane is valid.  ``found`` is "any lane valid", so a valid lane keying
+    INT64_MAX is still chosen."""
+    n = key.shape[-1]
+    lanes = torch.arange(n, dtype=torch.int64, device=key.device)
+    least = torch.where(valid, key, i64.INT64_MAX).amin(dim=-1, keepdim=True)
+    idx = torch.where(valid & (key == least), lanes, n).amin(dim=-1)
+    found = valid.any(dim=-1)
+    return torch.where(found, idx, -1).to(torch.int32), found
+
+
+def _row_lex_argmax(score: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
+    """Per-row argmax of int64 scores over the ok lanes, ties to the lowest
+    index; -1 where no lane is ok.  [P, N] -> int32 [P]."""
+    n = score.shape[-1]
+    lanes = torch.arange(n, dtype=torch.int64, device=score.device)
+    best = torch.where(ok, score, i64.INT64_MIN).amax(dim=-1, keepdim=True)
+    idx = torch.where(ok & (score == best), lanes, n).amin(dim=-1)
+    return torch.where(ok.any(dim=-1), idx, -1).to(torch.int32)
+
+
+def auction_assign(
+    score: torch.Tensor,  # int64 [P, N] — larger is better
+    eligible: torch.Tensor,  # bool [P, N]
+    capacity: torch.Tensor,  # int32 [N]
+) -> Tuple[AssignResult, int]:
+    """The fixpoint form of greedy-in-order (JAX ``auction_assign_kernel``):
+    exactly :func:`greedy_assign_reference`'s result, and the number of
+    rounds it took.
+
+    Every round, each pod takes its best eligible node among those whose
+    holds by lower-index pods (an exclusive cumsum of the one-hot choices
+    down the pod axis) are below capacity.  Pod p is stable after p rounds,
+    and in practice the rounds follow the depth of contention.  Plain
+    PyTorch on the inputs' device; one host read of "changed" a round."""
+    p, n = eligible.shape
+    capacity = capacity.to(torch.int32)
+    eligible = eligible.bool()
+    if p == 0 or n == 0:
+        node_for_pod = torch.full((p,), -1, dtype=torch.int32, device=capacity.device)
+        return AssignResult(node_for_pod=node_for_pod, capacity_left=capacity.clone()), 0
+
+    def holds_below(choice: torch.Tensor) -> torch.Tensor:
+        # F.one_hot refuses -1, which JAX's one_hot maps to a zero row
+        onehot = F.one_hot(choice.clamp(min=0).long(), n) * (choice >= 0).unsqueeze(-1)
+        return onehot.cumsum(dim=0) - onehot  # exclusive: holds by lower indices
+
+    choice = _row_lex_argmax(score, eligible & (capacity > 0).unsqueeze(0))
+    rounds = 0
+    changed = True
+    while changed:
+        room = holds_below(choice) < capacity.unsqueeze(0)
+        new_choice = _row_lex_argmax(score, eligible & room)
+        rounds += 1
+        changed = bool((new_choice != choice).any())
+        choice = new_choice
+    taken = torch.zeros(n, dtype=torch.int32, device=capacity.device)
+    taken.scatter_add_(0, choice.clamp(min=0).long(), (choice >= 0).to(torch.int32))
+    return AssignResult(node_for_pod=choice, capacity_left=capacity - taken), rounds
 
 
 def _assign_one(row, ok, lanes, pod, node_for_pod, cap) -> None:

@@ -9,7 +9,9 @@ unknown, unplanned or planned against an older mirror version gets None,
 and the caller falls back to the per-request path.
 
 The solve runs on the mirror's device: on a GPU through the hand-written
-greedy-assign kernel.  Only ``solver="greedy"`` is ported so far.
+greedy-assign kernel.  ``solver="greedy"`` is greedy in pod order, what
+the sequential scheduler would decide; ``solver="sinkhorn"`` rounds a
+Sinkhorn transport plan with the same greedy kernel (``ops/sinkhorn.py``).
 :meth:`BatchPlanner.watch` feeds the pending set and the per-node
 capacity from pod and node informers, so a pod the scheduler bound leaves
 the pending set and takes its node's slot in the next solve.
@@ -32,8 +34,10 @@ from platform_aware_scheduling_tpu_torch.kube.objects import Node, Pod, object_k
 from platform_aware_scheduling_tpu_torch.models.batch_scheduler import (
     ClusterState,
     PendingPods,
+    score_and_filter,
     scheduling_step,
 )
+from platform_aware_scheduling_tpu_torch.ops import sinkhorn
 from platform_aware_scheduling_tpu_torch.ops.rules import RuleSet
 from platform_aware_scheduling_tpu_torch.ops.state import (
     RULE_PAD,
@@ -51,6 +55,7 @@ from platform_aware_scheduling_tpu_torch.utils.device import (
 from platform_aware_scheduling_tpu_torch.utils.quantity import Quantity
 
 TAS_POLICY_LABEL = "telemetry-policy"
+SOLVERS = ("greedy", "sinkhorn")
 DEFAULT_NODE_CAPACITY = 110  # kubelet's default max pods per node
 
 
@@ -93,8 +98,8 @@ class BatchPlanner:
         allocatable pod count hasn't been observed; observed nodes use
         ``allocatable.pods - bound pods``, fed by :meth:`node_changed` and
         :meth:`pod_observed`.  ``device`` must be the mirror's device."""
-        if solver != "greedy":
-            raise ValueError(f"solver {solver!r} is not ported; only 'greedy' is")
+        if solver not in SOLVERS:
+            raise ValueError(f"solver {solver!r} is not one of {', '.join(SOLVERS)}")
         self.device = resolve_device(device)
         if not same_device(self.device, mirror.device):
             raise ValueError(
@@ -200,8 +205,12 @@ class BatchPlanner:
             with self._lock:
                 self._plan = {}
             return 0
-        out = scheduling_step(inputs.state, inputs.pods)
-        assigned = out.assignment.node_for_pod.cpu().numpy()
+        if self.solver == "sinkhorn":
+            _violating, score, eligible = score_and_filter(inputs.state, inputs.pods)
+            assignment = sinkhorn.sinkhorn_assign(score, eligible, inputs.state.capacity).assignment
+        else:
+            assignment = scheduling_step(inputs.state, inputs.pods).assignment
+        assigned = assignment.node_for_pod.cpu().numpy()
         view = inputs.view
         plan: Dict[str, Tuple[str, int]] = {}
         for i, key in enumerate(inputs.keys):

@@ -1,12 +1,14 @@
 """The plain greedy assignment and its dispatch, held exactly against the JAX
 package's scan (``greedy_assign_kernel``) and its Pallas kernel run in
-interpret mode on the CPU (``greedy_assign_pallas``)."""
+interpret mode on the CPU (``greedy_assign_pallas``); ``lex_argmin``,
+``_row_lex_argmax`` and the auction fixpoint against theirs."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from platform_aware_scheduling_tpu.ops import assign as jax_assign
 from platform_aware_scheduling_tpu.ops import i64 as jax_i64
 from platform_aware_scheduling_tpu.ops.assign import greedy_assign_kernel
 from platform_aware_scheduling_tpu.ops.pallas_assign import greedy_assign_pallas
@@ -240,3 +242,118 @@ class TestDispatch:
         assert command[-1] == str(_build.CSRC / "greedy_assign.cu")
         monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-G",))
         assert _build.library_path("greedy_assign") != path
+
+
+def _lex_case(name):
+    """(key int64 [P, N], valid bool [P, N]) for the argmin/argmax cases."""
+    rng = np.random.default_rng(len(name))
+    if name == "ties":
+        key = rng.integers(-2, 2, size=(9, 17)).astype(np.int64)
+        return key, rng.random((9, 17)) > 0.3
+    if name == "INT64_MIN":
+        key = rng.choice(np.array([INT64_MIN, INT64_MIN + 1, 0], dtype=np.int64), size=(7, 11))
+        return key, rng.random((7, 11)) > 0.4
+    if name == "INT64_MAX":
+        key = rng.choice(np.array([INT64_MAX, INT64_MAX - 1, -1], dtype=np.int64), size=(7, 11))
+        return key, rng.random((7, 11)) > 0.4
+    if name == "all lanes masked":
+        key = rng.integers(-(2**62), 2**62, size=(5, 13)).astype(np.int64)
+        valid = rng.random((5, 13)) > 0.5
+        valid[::2] = False
+        return key, valid
+    if name == "u32 limb edges":
+        vals = np.array([2**31, 2**31 - 1, 2**32 - 1, 2**32, -(2**32), -(2**31), -1, 0], dtype=np.int64)
+        return rng.choice(vals, size=(8, 24)), rng.random((8, 24)) > 0.2
+    raise ValueError(name)
+
+
+LEX_CASES = ["ties", "INT64_MIN", "INT64_MAX", "all lanes masked", "u32 limb edges"]
+
+
+class TestLexReductions:
+    """``lex_argmin`` and ``_row_lex_argmax`` exactly as the JAX package's
+    split-int64 forms, row by row."""
+
+    @pytest.mark.parametrize("case", LEX_CASES)
+    def test_lex_argmin(self, case):
+        key, valid = _lex_case(case)
+        for row in range(key.shape[0]):
+            want_idx, want_found = jax_assign.lex_argmin(
+                jax_i64.from_int64(key[row]), jnp.asarray(valid[row])
+            )
+            idx, found = assign.lex_argmin(torch.from_numpy(key[row]), torch.from_numpy(valid[row]))
+            assert idx.dtype == torch.int32 and found.dtype == torch.bool
+            assert (int(idx), bool(found)) == (int(want_idx), bool(want_found)), row
+        # the last axis, rows side by side
+        idx, found = assign.lex_argmin(torch.from_numpy(key), torch.from_numpy(valid))
+        want = [int(jax_assign.lex_argmin(jax_i64.from_int64(k), jnp.asarray(v))[0]) for k, v in zip(key, valid)]
+        assert idx.tolist() == want
+        assert found.tolist() == valid.any(axis=1).tolist()
+
+    @pytest.mark.parametrize("case", LEX_CASES)
+    def test_row_lex_argmax(self, case):
+        score, ok = _lex_case(case)
+        want = np.asarray(jax_assign._row_lex_argmax(jax_i64.from_int64(score), jnp.asarray(ok)))
+        got = assign._row_lex_argmax(torch.from_numpy(score), torch.from_numpy(ok))
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want)
+
+    def test_ok_lane_at_int64_min_is_chosen(self):
+        score = torch.tensor([[INT64_MIN, 4], [INT64_MAX, INT64_MIN]], dtype=torch.int64)
+        ok = torch.tensor([[True, False], [False, True]])
+        assert assign._row_lex_argmax(score, ok).tolist() == [0, 1]
+        idx, found = assign.lex_argmin(torch.tensor([INT64_MAX, 3], dtype=torch.int64), torch.tensor([True, False]))
+        assert (int(idx), bool(found)) == (0, True)
+
+
+def _auction_draw(seed):
+    """``tests/test_parallel.py::TestAuctionAssign``'s draw."""
+    rng = np.random.default_rng(seed)
+    p, n = int(rng.integers(1, 40)), int(rng.integers(1, 80))
+    score = rng.integers(-3, 3, size=(p, n)).astype(np.int64) * (10 ** int(rng.integers(0, 15)))
+    eligible = rng.random((p, n)) > 0.3
+    capacity = rng.integers(0, 2, size=n).astype(np.int32)
+    return score, eligible, capacity
+
+
+class TestAuctionAssign:
+    """The fixpoint equals JAX ``auction_assign_kernel`` and the greedy
+    scan exactly."""
+
+    def _check(self, score, eligible, capacity):
+        got, rounds = assign.auction_assign(
+            torch.from_numpy(score), torch.from_numpy(eligible), torch.from_numpy(capacity)
+        )
+        args = (jax_i64.from_int64(score), jnp.asarray(eligible), jnp.asarray(capacity))
+        for want in (jax_assign.auction_assign_kernel(*args), greedy_assign_kernel(*args)):
+            np.testing.assert_array_equal(got.node_for_pod.numpy(), np.asarray(want.node_for_pod))
+            np.testing.assert_array_equal(got.capacity_left.numpy(), np.asarray(want.capacity_left))
+        plain = assign.greedy_assign_reference(*(torch.from_numpy(x) for x in (score, eligible, capacity)))
+        assert torch.equal(got.node_for_pod, plain.node_for_pod)
+        assert torch.equal(got.capacity_left, plain.capacity_left)
+        assert got.node_for_pod.dtype == torch.int32 and got.capacity_left.dtype == torch.int32
+        assert 1 <= rounds <= score.shape[0] + 1
+        return got, rounds
+
+    @pytest.mark.parametrize("seed", range(6))
+    def test_random_equivalence(self, seed):
+        self._check(*_auction_draw(seed))
+
+    def test_eviction_chain(self):
+        """Pod 1 loses node 0 to pod 0 and must evict pod 2 from node 1."""
+        score = np.array([[9, 1, 0], [9, 5, 1], [0, 9, 1]], dtype=np.int64)
+        got, rounds = self._check(score, np.ones((3, 3), dtype=bool), np.ones(3, dtype=np.int32))
+        assert got.node_for_pod.tolist() == [0, 1, 2]
+        assert rounds >= 2
+
+    @pytest.mark.parametrize("case", STAGED_CASES)
+    def test_staged_cases(self, case):
+        self._check(*_staged_case(case, np.random.default_rng(STAGED_CASES.index(case))))
+
+    @pytest.mark.parametrize("shape", [(0, 5), (3, 0)])
+    def test_empty(self, shape):
+        p, n = shape
+        got, rounds = assign.auction_assign(
+            torch.zeros((p, n), dtype=torch.int64), torch.ones((p, n), dtype=torch.bool), torch.ones(n, dtype=torch.int32)
+        )
+        assert got.node_for_pod.tolist() == [-1] * p and rounds == 0

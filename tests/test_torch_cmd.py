@@ -104,7 +104,7 @@ def test_unported_flag_is_refused(flag, capsys):
     assert "unrecognized arguments" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("argv", [["--batchSolver=sinkhorn"], ["--serving=async"], ["--degradedMode=on"]])
+@pytest.mark.parametrize("argv", [["--batchSolver=auction"], ["--serving=async"], ["--degradedMode=on"]])
 def test_unported_choice_is_refused(argv):
     with pytest.raises(SystemExit):
         tas.build_arg_parser().parse_args(argv)
@@ -710,3 +710,39 @@ def test_planner_watch_matches_the_jax_planner():
     finally:
         for h in handles:
             h.stop()
+
+
+def test_batch_solver_sinkhorn_reaches_the_planner(monkeypatch):
+    """``--batchSolver=sinkhorn`` parses as the JAX main's flag does, and
+    ``assemble(batch_solver=...)`` builds a planner whose replan loop
+    solves with Sinkhorn: two pods, one slot a node, both placed."""
+    from platform_aware_scheduling_tpu_torch.ops import sinkhorn
+
+    argv = ["--batchPlanner", "--batchSolver=sinkhorn"]
+    args = tas.build_arg_parser().parse_args(argv)
+    assert args.batchSolver == jax_tas.build_arg_parser().parse_args(argv).batchSolver == "sinkhorn"
+    kube = FakeKubeClient()
+    for name, value in (("n1", 100), ("n2", 99)):
+        kube.add_node(builders.make_node(name, allocatable={"pods": "1"}))
+        kube.set_node_metric("m", name, str(value))
+    pods = [builders.make_pod(f"p{i}", labels={"telemetry-policy": "pol"}) for i in range(2)]
+    for pod in pods:
+        kube.add_pod(pod)
+    kube.create_taspolicy(builders.make_policy("pol", strategies={"scheduleonmetric": [builders.rule("m", "GreaterThan", 0)]}))
+    solves = []
+    real = sinkhorn.sinkhorn_assign
+    monkeypatch.setattr(sinkhorn, "sinkhorn_assign", lambda *a, **kw: solves.append(1) or real(*a, **kw))
+    threads = set(threading.enumerate())
+    parts = tas.assemble(
+        kube, CustomMetricsClient(kube), 0.05, enable_batch_planner=args.batchPlanner,
+        batch_solver=args.batchSolver, device="cpu",
+    )
+    try:
+        planner = parts[2].planner
+        assert planner.solver == "sinkhorn"
+        placed = lambda: {planner.planned_node(Pod(p.raw)) for p in pods}  # noqa: E731
+        assert wait_until(lambda: placed() == {"n1", "n2"}, 30)
+        assert solves
+    finally:
+        parts[5].set()
+        join_threads_started_since(threads, [kube])

@@ -221,8 +221,13 @@ class TestDeviceRule:
             lambda: BatchPlanner(AutoUpdatingCache(), TensorStateMirror(device="cpu")),
             lambda: convert.history_tensor_from_numpy(np.zeros((1, 1, 2), np.int32), np.ones((1, 1, 2), bool)),
             lambda: convert.forecast_result_from_numpy(*[np.zeros((1, 1), np.int32)] * 6),
+            lambda: convert.fused_requests_from_numpy(
+                np.zeros((1, 1, 1), np.int32), np.zeros((1, 1, 1), np.uint32), np.ones((1, 1, 1), bool),
+                np.ones((1, 1), np.int32), np.ones((1, 1), bool),
+            ),
         ],
-        ids=["mirror", "example_inputs", "pending_pods", "cluster_state", "planner", "history", "forecast_result"],
+        ids=["mirror", "example_inputs", "pending_pods", "cluster_state", "planner", "history", "forecast_result",
+             "fused_requests"],
     )
     def test_no_device_and_no_gpu_raises(self, entry):
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -239,9 +244,9 @@ class TestDeviceRule:
             BatchPlanner(AutoUpdatingCache(), TensorStateMirror(device="cpu"), device="meta")
 
     def test_unported_solver_refused(self):
-        with pytest.raises(ValueError, match="sinkhorn"):
+        with pytest.raises(ValueError, match="'auction' is not one of greedy, sinkhorn"):
             BatchPlanner(
-                AutoUpdatingCache(), TensorStateMirror(device="cpu"), solver="sinkhorn", device="cpu"
+                AutoUpdatingCache(), TensorStateMirror(device="cpu"), solver="auction", device="cpu"
             )
 
 
@@ -274,3 +279,30 @@ def test_int64_split_round_trip(seed):
     )
     np.testing.assert_array_equal(state.metric_values.numpy().ravel(), values)
     np.testing.assert_array_equal(state.dontschedule.target.numpy(), values[:8])
+
+
+def test_fused_cuda_wrapper_refuses_cpu_tensors():
+    """``ops/cuda_fused`` launches for CUDA tensors only: CPU tensors are
+    refused before the builder is touched, never run on the plain scan."""
+    from platform_aware_scheduling_tpu_torch.models.fused import FusedRequests
+    from platform_aware_scheduling_tpu_torch.ops import cuda_fused
+    from platform_aware_scheduling_tpu_torch.ops.binpack import BinpackNodeState
+
+    n, c, r, t = 3, 2, 2, 2
+    gas = BinpackNodeState(
+        torch.zeros((n, c, r), dtype=torch.int64), torch.ones((n, r), dtype=torch.int64),
+        torch.ones((n, r), dtype=torch.bool), torch.ones((n, c), dtype=torch.bool),
+        torch.ones((n, c), dtype=torch.bool), torch.zeros((n, c), dtype=torch.int32),
+    )
+    requests = FusedRequests(
+        torch.ones((t, 1, r), dtype=torch.int64), torch.ones((t, 1, r), dtype=torch.bool),
+        torch.ones((t, 1), dtype=torch.int32), torch.ones((t, 1), dtype=torch.bool),
+    )
+    launches = cuda_fused.fused_schedule_cuda.LAUNCHES
+    with pytest.raises(ValueError, match="not cuda"):
+        cuda_fused.fused_schedule_cuda(
+            torch.zeros((2, n), dtype=torch.int64), torch.ones((2, n), dtype=torch.bool),
+            torch.ones(n, dtype=torch.int32), torch.zeros(2, dtype=torch.int32),
+            torch.ones((t, n), dtype=torch.bool), gas, requests, 1,
+        )
+    assert cuda_fused.fused_schedule_cuda.LAUNCHES == launches

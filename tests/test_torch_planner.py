@@ -27,15 +27,17 @@ from platform_aware_scheduling_tpu_torch.utils.quantity import Quantity
 class Twin:
     """One JAX stack and one port stack, fed the same events."""
 
-    def __init__(self, node_capacity=1):
+    def __init__(self, node_capacity=1, solver="greedy"):
         self.jax_cache = JaxCache()
         self.jax_mirror = JaxMirror()
         self.jax_mirror.attach(self.jax_cache)
-        self.jax = JaxPlanner(self.jax_cache, self.jax_mirror, node_capacity=node_capacity)
+        self.jax = JaxPlanner(self.jax_cache, self.jax_mirror, node_capacity=node_capacity, solver=solver)
         self.cache = AutoUpdatingCache()
         self.mirror = TensorStateMirror(device="cpu")
         self.mirror.attach(self.cache)
-        self.port = BatchPlanner(self.cache, self.mirror, node_capacity=node_capacity, device="cpu")
+        self.port = BatchPlanner(
+            self.cache, self.mirror, node_capacity=node_capacity, solver=solver, device="cpu"
+        )
 
     def policy(self, name, strategies, namespace="default"):
         obj = make_policy(name, namespace=namespace, strategies=strategies)
@@ -252,14 +254,44 @@ class TestPolicies:
         twin.plans_match([pending("p0", "first"), pending("p1", "second")])
 
 
+class TestSinkhornPlanner:
+    def test_sinkhorn_solver_coordinates(self):
+        """The JAX planner test's case: two pods, capacity one, n1 a shade
+        better than n2; both packages place one pod on each."""
+        twin = Twin(node_capacity=1, solver="sinkhorn")
+        twin.policy("plan-pol", {"scheduleonmetric": [rule("m", "GreaterThan", 0)]})
+        twin.metric("m", {"n1": 100, "n2": 99})
+        pods = [pending("p0"), pending("p1")]
+        for pod in pods:
+            twin.add(pod)
+        assert twin.replan() == 2
+        assert set(twin.plans_match(pods).values()) == {"n1", "n2"}
+
+    def test_unknown_solver_refused(self):
+        cache = AutoUpdatingCache()
+        mirror = TensorStateMirror(device="cpu")
+        with pytest.raises(ValueError, match="not one of greedy, sinkhorn"):
+            BatchPlanner(cache, mirror, solver="auction", device="cpu")
+
+    @pytest.mark.parametrize("seed", range(2))
+    def test_seeded_world(self, seed):
+        """The seeded world below with the Sinkhorn solver: every plan
+        equal to the JAX planner's."""
+        _seeded_world(seed, solver="sinkhorn")
+
+
 @pytest.mark.parametrize("seed", range(2))
 def test_seeded_cluster_with_churn(seed):
     """A few hundred nodes and pods over four policies, with metric churn,
     bound pods and allocatables across several replans."""
+    _seeded_world(seed)
+
+
+def _seeded_world(seed, solver="greedy"):
     rng = np.random.default_rng(seed)
     nodes = [f"node-{i:03d}" for i in range(int(rng.integers(200, 320)))]
     metrics = [f"metric{j}" for j in range(5)]
-    twin = Twin()
+    twin = Twin(solver=solver)
     ops = ["LessThan", "GreaterThan"]
     for k in range(4):
         dont = [rule(metrics[(k + 1) % 5], ops[k % 2], int(rng.integers(200, 800)))]
