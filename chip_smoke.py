@@ -2822,6 +2822,31 @@ def binpack_ptxas_report(proc) -> dict:
     return instances
 
 
+def fused_ptxas_report(proc) -> dict:
+    """Registers, stack bytes and spill bytes of the fused scan's two
+    kernels, from ptxas's report."""
+    output, _ = proc.communicate(timeout=300)
+    check(proc.returncode == 0, f"fused: nvcc -Xptxas -v exited {proc.returncode}\n{output}")
+    kernels, current = {}, None
+    for line in output.splitlines():
+        named = re.search(r"(?:Compiling entry function '|Function properties for )\S*?(candidates_kernel|resolve_kernel)", line)
+        if named:
+            current = kernels.setdefault(named.group(1), {})
+            continue
+        if current is None:
+            continue
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if frame:
+            current["stack"], stores, loads = (int(x) for x in frame.groups())
+            current["spills"] = stores + loads
+        used = re.search(r"Used (\d+) registers", line)
+        if used:
+            current["registers"] = int(used.group(1))
+    check(sorted(kernels) == ["candidates_kernel", "resolve_kernel"] and all(len(v) == 3 for v in kernels.values()),
+          f"fused: no ptxas report of both kernels in\n{output}")
+    return kernels
+
+
 def check_card_limit(torch) -> None:
     from platform_aware_scheduling_tpu_torch.ops.binpack import BinpackNodeState, BinpackRequest
     from platform_aware_scheduling_tpu_torch.ops.cuda_binpack import binpack_cuda, max_cards
@@ -4454,6 +4479,46 @@ def fused_edge_cases(torch, np, device: str) -> list:
         parts["requests"]["num_gpus"][:, 0] = 3
         parts["gas"]["used"][:, ::2, :] = 0
 
+    def revival(parts, rng):
+        # three cards of room (10, 10); on every other node they hold (0, 0),
+        # (10, 10), (0, 5), where class 1 ((1, 5) then (0, 8)) fits only once
+        # class 0 ((10, 0)) has booked the first card
+        gas, req = parts["gas"], parts["requests"]
+        gas["capacity"][:] = 10
+        gas["used"][:] = 0
+        gas["used"][::2] = [[0, 0], [10, 10], [0, 5]]
+        req["need"][:] = [[[10, 0], [0, 0]], [[1, 5], [0, 8]]]
+        req["need_active"][:] = True
+        req["num_gpus"][:] = 1
+        req["container_active"][:] = [[True, False], [True, True]]
+        parts["req_class"][:] = rng.random(parts["req_class"].shape) < 0.6
+
+    def overflow(parts, rng):
+        # class 0 pod i may use node i alone, so 300 nodes revive class 1,
+        # more than its revived list holds; the class 1 pods then rescan
+        revival(parts, rng)
+        parts["gas"]["used"][:] = [[0, 0], [10, 10], [0, 5]]
+        parts["state"]["capacity"][:] = 2
+        parts["state"]["metric_values"][:2] //= 2  # no node breaks a dontschedule rule
+        parts["state"]["metric_present"][:] = True
+        parts["req_class"][:] = np.arange(parts["req_class"].shape[0]) >= 300
+        parts["pods"]["candidates"][:300] = np.eye(300, parts["pods"]["candidates"].shape[1], dtype=bool)
+        parts["pods"]["candidates"][300:] = True
+
+    def shared_row(parts, rng):
+        # every pod scores the nodes alike and each node takes one pod, so
+        # the pods after the first 128 find their lists used up
+        parts["state"]["capacity"][:] = 1
+        parts["pods"]["metric_row"][:] = 0
+        parts["pods"]["op_id"][:] = parts["pods"]["op_id"][0]
+        parts["pods"]["candidates"][:] = True
+
+    def exhausted(parts, rng):
+        # every pod may use only the first 40 nodes, fewer than a list holds
+        parts["state"]["capacity"][:] = 1
+        parts["pods"]["candidates"][:] = False
+        parts["pods"]["candidates"][:, :40] = True
+
     return [
         ("near-wrap usage", edited(31, edit=near_wrap)),
         ("card_order past 2^30", edited(32, edit=order_past_2_30)),
@@ -4465,7 +4530,97 @@ def fused_edge_cases(torch, np, device: str) -> list:
                                                           num_res=5, num_classes=5, edit=wide)),
         ("5 nodes", edited(38, num_nodes=5, num_pods=40)),
         ("1000 nodes, 1 pod", edited(39, num_nodes=1000, num_pods=1)),
+        ("a booking revives a fit", edited(40, num_nodes=60, num_pods=200, num_cards=3, num_res=2, num_classes=2,
+                                           edit=revival)),
+        ("the revived list overflows", edited(43, num_nodes=400, num_pods=400, num_cards=3, num_res=2,
+                                              num_classes=2, edit=overflow)),
+        ("lists of 128 run out", edited(41, num_nodes=600, num_pods=300, edit=shared_row)),
+        ("an exhausted complete list", edited(42, num_nodes=400, num_pods=100, edit=exhausted)),
     ]
+
+
+# what each new edge case is there to exercise: every count named must be > 0
+FUSED_CASE_WANTS = {
+    "a booking revives a fit": ("revived placements", "revivals"),
+    "the revived list overflows": ("revived placements", "revivals", "rescans"),
+    "lists of 128 run out": ("rescans",),
+    "an exhausted complete list": ("exhausted lists",),
+}
+
+
+def fused_scan_args(torch, problem) -> tuple:
+    """The scan's inputs of a fused problem, on its device: (score,
+    eligible, capacity, req_class, fits0, gas, requests, max_gpus)."""
+    from platform_aware_scheduling_tpu_torch.models.batch_scheduler import score_and_filter
+    from platform_aware_scheduling_tpu_torch.models.fused import _all_fits
+
+    _violating, score, eligible = score_and_filter(problem.state, problem.pods)
+    fits0 = _all_fits(problem.gas, problem.requests, problem.max_gpus)
+    return (score, eligible, problem.state.capacity, problem.req_class, fits0, problem.gas, problem.requests,
+            problem.max_gpus)
+
+
+def on_cpu(args) -> tuple:
+    """The scan's inputs moved to the CPU (NamedTuples of tensors kept)."""
+    return tuple(
+        type(x)(*(v.cpu() for v in x)) if isinstance(x, tuple) else x.cpu() if hasattr(x, "cpu") else x for x in args
+    )
+
+
+def check_fused_stages(torch, name: str, args, want, on_card: bool) -> dict:
+    """The kernel's two launches against their plain model: the staged
+    model (run on the CPU) equal to the plain scan ``want`` on the four
+    scan outputs; on the card the kernel equal to both and its (rescans,
+    revivals) equal to the model's.  Returns :func:`fused_case_facts` and
+    checks :data:`FUSED_CASE_WANTS` for the case."""
+    from platform_aware_scheduling_tpu_torch.models.fused import fused_scan_staged_reference
+    from platform_aware_scheduling_tpu_torch.ops.cuda_fused import (
+        LIST_SIZE,
+        REVIVED_SIZE,
+        fused_schedule_cuda_with_stats,
+    )
+
+    cpu_args = on_cpu(args)
+    t0 = time.perf_counter()
+    model, model_stats = fused_scan_staged_reference(*cpu_args, LIST_SIZE, REVIVED_SIZE)
+    model_s = time.perf_counter() - t0
+    for label, m, w in zip(model._fields, model, want):
+        check(torch.equal(m, w.cpu()), f"fused {name}: the staged model's {label} differs from the plain version")
+    stats = tuple(model_stats)
+    if on_card:
+        scan, kernel_stats = fused_schedule_cuda_with_stats(*args)
+        for label, g, m in zip(scan._fields, scan, model):
+            check(torch.equal(g.cpu(), m), f"fused {name}: the kernel's {label} differs from the staged model")
+        kernel_stats = tuple(int(x) for x in kernel_stats.tolist())
+        check(kernel_stats == stats,
+              f"fused {name}: the kernel counted (rescans, revivals) {kernel_stats}, the staged model {stats}")
+    facts = fused_case_facts(torch, cpu_args, want.node_for_pod, stats)
+    for key in FUSED_CASE_WANTS.get(name, ()):
+        check(facts[key] > 0, f"fused {name}: the case has no {key}")
+    facts["model_s"] = model_s
+    return facts
+
+
+def fused_case_facts(torch, args, node_for_pod, stats) -> dict:
+    """What a solve exercised: pods placed on a node their class did not
+    fit at the start, pods left at -1 with a complete list (1 to L
+    starting-ok lanes), and the resolve's rescans and revivals (``stats``,
+    from the kernel or the staged model)."""
+    from platform_aware_scheduling_tpu_torch.ops.cuda_fused import LIST_SIZE
+
+    _score, eligible, capacity, req_class, fits0 = (x.cpu() for x in args[:5])
+    node_for_pod = node_for_pod.cpu()
+    cls = req_class.long()
+    counts = (eligible & (capacity > 0) & fits0[cls]).sum(dim=1)
+    placed = node_for_pod >= 0
+    revived = placed & ~fits0[cls, node_for_pod.clamp(min=0).long()]
+    rescans, revivals = (int(x) for x in stats)
+    return {
+        "revived placements": int(revived.sum()),
+        "exhausted lists": int((~placed & (counts > 0) & (counts <= LIST_SIZE)).sum()),
+        "rescans": rescans,
+        "revivals": revivals,
+    }
 
 
 def fused_outputs_equal(torch, name: str, got, want) -> float:
@@ -4482,64 +4637,98 @@ def fused_outputs_equal(torch, name: str, got, want) -> float:
 
 def check_fused_limits(torch, problem) -> None:
     """Shapes past the kernel's limits and classes outside [0, T) are
-    refused before a launch."""
-    from platform_aware_scheduling_tpu_torch.models.batch_scheduler import score_and_filter
-    from platform_aware_scheduling_tpu_torch.models.fused import _all_fits
+    refused before a launch; so is N past the resolve block's shared
+    memory, which must take the mirror's 16,384 nodes at the main path's
+    shape."""
     from platform_aware_scheduling_tpu_torch.ops import cuda_fused
+    from platform_aware_scheduling_tpu_torch.ops.binpack import BinpackNodeState
 
-    _v, score, eligible = score_and_filter(problem.state, problem.pods)
-    fits0 = _all_fits(problem.gas, problem.requests, problem.max_gpus)
-    t = problem.requests.need.shape[0]
+    score, eligible, capacity, req_class, fits0, gas, requests, max_gpus = fused_scan_args(torch, problem)
+    t, tc, _r = requests.need.shape
     launches = cuda_fused.fused_schedule_cuda.LAUNCHES
-    bad = problem.req_class.clone()
+    bad = req_class.clone()
     bad[-1] = t
-    n, r = problem.gas.capacity.shape
-    ones = torch.ones((n, 65), dtype=torch.bool, device=score.device)
-    wide = problem.gas._replace(
-        used=torch.zeros((n, 65, r), dtype=torch.int64, device=score.device),
+    n, c, r = gas.used.shape
+    device = score.device
+    ones = torch.ones((n, 65), dtype=torch.bool, device=device)
+    wide = gas._replace(
+        used=torch.zeros((n, 65, r), dtype=torch.int64, device=device),
         card_valid=ones,
         card_real=ones,
-        card_order=torch.zeros((n, 65), dtype=torch.int32, device=score.device),
+        card_order=torch.zeros((n, 65), dtype=torch.int32, device=device),
+    )
+    limit = cuda_fused.max_nodes(device, c, r, t, tc)
+    check(limit >= 16384, f"fused: the resolve block takes {limit} nodes at C={c}, R={r}, T={t}, Tc={tc}, under 16,384")
+    big = limit + 1
+    big_gas = BinpackNodeState(
+        used=torch.zeros((big, c, r), dtype=torch.int64, device=device),
+        capacity=torch.ones((big, r), dtype=torch.int64, device=device),
+        cap_present=torch.ones((big, r), dtype=torch.bool, device=device),
+        card_valid=torch.ones((big, c), dtype=torch.bool, device=device),
+        card_real=torch.ones((big, c), dtype=torch.bool, device=device),
+        card_order=torch.zeros((big, c), dtype=torch.int32, device=device),
+    )
+    past_limit = (
+        torch.zeros((1, big), dtype=torch.int64, device=device),
+        torch.ones((1, big), dtype=torch.bool, device=device),
+        torch.ones(big, dtype=torch.int32, device=device),
+        req_class[:1].clone(),
+        torch.ones((t, big), dtype=torch.bool, device=device),
+        big_gas,
     )
     for what, args, says in (
-        ("a class outside [0, T)", (score, eligible, problem.state.capacity, bad, fits0, problem.gas), "classes span"),
-        ("65 cards", (score, eligible, problem.state.capacity, problem.req_class, fits0, wide), "card lanes"),
+        ("a class outside [0, T)", (score, eligible, capacity, bad, fits0, gas), "classes span"),
+        ("65 cards", (score, eligible, capacity, req_class, fits0, wide), "card lanes"),
+        (f"N={big} nodes", past_limit, "shared memory"),
     ):
         try:
-            cuda_fused.fused_schedule_cuda(*args, problem.requests, problem.max_gpus)
+            cuda_fused.fused_schedule_cuda(*args, requests, max_gpus)
         except ValueError as exc:
             check(says in str(exc), f"fused: {what} refused for another reason: {exc}")
             continue
         raise SmokeError(f"fused: {what} was not refused")
     check(cuda_fused.fused_schedule_cuda.LAUNCHES == launches, "fused: a refused call counted a launch")
-    print("fused parity: a class outside [0, T) and 65 cards refused before a launch")
+    print(
+        f"fused parity: a class outside [0, T), 65 cards and N={big} refused before a launch (the resolve block "
+        f"takes {limit} nodes at C={c}, R={r}, T={t}, Tc={tc}: {cuda_fused.shared_bytes(limit, c, r, t, tc)} of "
+        f"{cuda_fused.max_shared(device)} bytes of shared memory)"
+    )
 
 
-def run_fused(torch, np, device: str = "cuda") -> dict:
+def run_fused(torch, np, device: str = "cuda", num_nodes: int = 10_000, num_pods: int = 1_000) -> dict:
     """BASELINE config #4 on the card: the fused kernel held exactly
-    against the plain solve on edge cases, then the main path,
-    :func:`fused_problem` at full size, solved ``FUSED_SOLVES`` times by
-    ``models/fused.fused_schedule`` with every count set to 0 just before
-    (each solve T bin-pack launches and one scan launch), then once by the
-    plain version on the card, all five outputs equal; then the times."""
+    against the plain solve and against the staged model of its two
+    launches, rescans and revivals included, on edge cases; then the main
+    path, :func:`fused_problem` at full size, solved ``FUSED_SOLVES`` times
+    by ``models/fused.fused_schedule`` with every count set to 0 just
+    before (each solve T bin-pack launches and one scan launch), then once
+    by the plain version on the card, all five outputs equal, and the
+    kernel's counts against the staged model's; then the times.  A CPU
+    rehearsal passes ``device="cpu"`` and a smaller ``num_nodes`` and
+    ``num_pods``."""
     from platform_aware_scheduling_tpu_torch.models import fused
     from platform_aware_scheduling_tpu_torch.ops import cuda_fused
     from platform_aware_scheduling_tpu_torch.ops.cuda_binpack import binpack_cuda
 
     on_card = device != "cpu"
-    out = {"cases": 0, "max_abs_err": 0.0}
+    out = {"cases": 0, "max_abs_err": 0.0, "edge_rescans": 0, "edge_revivals": 0}
     for name, problem in fused_edge_cases(torch, np, device):
         got = fused.fused_schedule(*problem)
         want = fused.fused_schedule_reference(*problem)
         err = fused_outputs_equal(torch, f"parity {name}", got, want)
         out["max_abs_err"] = max(out["max_abs_err"], err)
         out["cases"] += 1
+        facts = check_fused_stages(torch, name, fused_scan_args(torch, problem), want, on_card)
+        out["edge_rescans"] += facts["rescans"]
+        out["edge_revivals"] += facts["revivals"]
         print(
             f"fused parity {name}: exact ({int((got.node_for_pod >= 0).sum())} of {got.node_for_pod.numel()} pods "
             f"placed, {int((got.used != problem.gas.used).any(dim=-1).sum())} cards booked, "
-            f"{int(got.fits.sum())} of {got.fits.numel()} class fits left)"
+            f"{int(got.fits.sum())} of {got.fits.numel()} class fits left; {facts['rescans']} rescans, "
+            f"{facts['revivals']} revivals, {facts['revived placements']} pods on a revived node, "
+            f"{facts['exhausted lists']} complete lists used up, as the staged model counts)"
         )
-    problem = fused_problem(torch, np, device)
+    problem = fused_problem(torch, np, device, num_nodes=num_nodes, num_pods=num_pods)
     if on_card:
         check_fused_limits(torch, problem)
     t = problem.requests.need.shape[0]
@@ -4577,49 +4766,66 @@ def run_fused(torch, np, device: str = "cuda") -> dict:
     out["plain_solve_s"] = time.perf_counter() - t0
     err = fused_outputs_equal(torch, f"main path {n} x {p}", result, want)
     out["max_abs_err"] = max(out["max_abs_err"], err)
+    args = fused_scan_args(torch, problem)
+    facts = check_fused_stages(torch, f"main path {n} x {p}", args, want, on_card)
+    out["rescans"], out["revivals"], out["model_s"] = facts["rescans"], facts["revivals"], facts["model_s"]
+    out["list_size"], out["revived_size"] = cuda_fused.LIST_SIZE, cuda_fused.REVIVED_SIZE
     out["shape"] = [p, n, *problem.gas.used.shape[1:], t, problem.requests.need.shape[1], problem.max_gpus]
     if on_card:
-        out["times"] = time_fused(torch, problem)
+        out["times"] = time_fused(torch, args)
     return out
 
 
-def time_fused(torch, problem) -> dict:
+def time_fused(torch, args) -> dict:
     """The scan kernel's times on the main path's inputs, beside the plain
     scan's and the least time the card could take: the bytes the function
     must move (each input read once, each output written once) over the
-    card's memory rate.  ``ms`` is the kernel's device time, 3 launches
-    captured in a CUDA graph and replayed between events (or, where the
-    capture of a cooperative launch is refused, 3 launches back to back
-    between events, ``graph_note`` saying so); ``call_ms`` a wrapper call's
-    (its class check reads the classes back); ``profiler_ms``
-    ``torch.profiler``'s reading of the kernel."""
+    card's memory rate.  ``ms`` is the kernel's device time, 3 calls (each
+    both launches) captured in a CUDA graph and replayed between events
+    (or, where the capture is refused, 3 calls back to back between events,
+    ``graph_note`` saying so); ``candidates_ms`` the candidate pass's, 3 in
+    a graph; ``resolve_ms`` the resolve's, the median of 5 launches each
+    between two events (it books into its input, so each follows a
+    candidate pass); ``call_ms`` a wrapper call's (its class check reads
+    the classes back); ``profiler_ms`` ``torch.profiler``'s reading of both
+    kernels."""
     from platform_aware_scheduling_tpu_torch.models import fused
-    from platform_aware_scheduling_tpu_torch.models.batch_scheduler import score_and_filter
     from platform_aware_scheduling_tpu_torch.ops import cuda_fused
 
-    _violating, score, eligible = score_and_filter(problem.state, problem.pods)
-    fits0 = fused._all_fits(problem.gas, problem.requests, problem.max_gpus)
-    args = (score, eligible, problem.state.capacity, problem.req_class, fits0, problem.gas, problem.requests,
-            problem.max_gpus)
+    score, eligible, capacity, req_class, fits0, gas, requests, _max_gpus = args
     p, n = score.shape
-    _n, c, r = problem.gas.used.shape
+    _n, c, r = gas.used.shape
     t = fits0.shape[0]
-    inputs = (score, eligible, problem.state.capacity, problem.req_class, fits0, *problem.gas, *problem.requests)
+    inputs = (score, eligible, capacity, req_class, fits0, *gas, *requests)
     bytes_needed = sum(x.numel() * x.element_size() for x in inputs) + 4 * p + 4 * n + 8 * n * c * r + t * n
     launches = cuda_fused.fused_schedule_cuda.LAUNCHES
     launch = lambda: cuda_fused.launch(*args)  # noqa: E731
+    candidates = lambda: cuda_fused.launch_candidates(*args[:6])  # noqa: E731
     out = {"shape": [p, n, c, r, t], "bytes": bytes_needed, "bound_ms": bytes_needed / HBM_BYTES_PER_S * 1e3}
     try:
         out["graph_ms"] = graph_ms(torch, launch, 3, replays=3)
+        out["candidates_ms"] = graph_ms(torch, candidates, 3, replays=3)
         out["graph_note"] = None
     except RuntimeError as exc:
         torch.cuda.synchronize()
         out["graph_ms"] = None
+        out["candidates_ms"] = cuda_ms(torch, candidates, 3)
         out["graph_note"] = f"capture refused: {str(exc).splitlines()[0][:160]}"
+    resolves = []
+    for _ in range(6):  # the first is a warm-up
+        staged = candidates()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        cuda_fused.launch_resolve(*args, *staged)
+        end.record()
+        torch.cuda.synchronize()
+        resolves.append(start.elapsed_time(end))
+    out["resolve_ms"] = statistics.median(resolves[1:])
     out["events_ms"] = cuda_ms(torch, launch, 3)
     out["ms"] = out["graph_ms"] if out["graph_ms"] is not None else out["events_ms"]
     out["device_ms"] = out["ms"]
-    out["profiler_ms"] = profiled_ms(torch, launch, ("fused_schedule_kernel",), 3)
+    out["profiler_ms"] = profiled_ms(torch, launch, ("candidates_kernel", "resolve_kernel"), 3)
     out["call_ms"] = cuda_ms(torch, lambda: cuda_fused.fused_schedule_cuda(*args), 3)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -4641,17 +4847,23 @@ def fused_lines(f: dict, card: str) -> list:
         f"the plain version on all five outputs; {FUSED_SOLVES} solves: fused_schedule launches {f['launches']}, "
         f"binpack launches {f['binpack_launches']}; {f['placed']} pods placed; solve wall p50 "
         f"{statistics.median(walls):.3f} ms; the plain solve {f['plain_solve_s']:.3f} s [{card}]",
+        f"fused stages: list {f['list_size']}, revived list {f['revived_size']} a class; main path {f['rescans']} "
+        f"rescans, {f['revivals']} revivals; edge cases {f['edge_rescans']} rescans, {f['edge_revivals']} revivals; "
+        f"{'the kernel' if 'times' in f else 'the plain scan'} equal to the staged model, counts included (model "
+        f"{f['model_s']:.3f} s on the CPU)",
     ]
     if "times" not in f:
         return lines
     t = f["times"]
-    device = (f"{t['graph_ms']:.4f} ms (3 launches in a CUDA graph)" if t["graph_ms"] is not None
-              else f"{t['events_ms']:.4f} ms (3 launches between events; {t['graph_note']})")
+    device = (f"{t['graph_ms']:.4f} ms (3 calls in a CUDA graph)" if t["graph_ms"] is not None
+              else f"{t['events_ms']:.4f} ms (3 calls between events; {t['graph_note']})")
     return lines + [
-        f"fused_schedule main path {p}x{n}: kernel device {device}, events {t['events_ms']:.4f} ms, "
+        f"fused_schedule main path {p}x{n}: kernel device {device} (two launches: candidates "
+        f"{t['candidates_ms']:.4f} ms, resolve {t['resolve_ms']:.4f} ms), events {t['events_ms']:.4f} ms, "
         f"torch.profiler {ms_or_not_measured(t['profiler_ms'])}, a wrapper call {t['call_ms']:.4f} ms; "
-        f"{t['ms'] / p * 1e3:.3f} us a pod; plain scan {t['plain_ms']:.3f} ms; bound {t['bound_ms']:.4f} ms "
-        f"({t['bytes']} bytes); library call: none, no single PyTorch call computes the fused scan [{card}]",
+        f"{t['resolve_ms'] / p * 1e3:.3f} us a pod in the resolve; plain scan {t['plain_ms']:.3f} ms; bound "
+        f"{t['bound_ms']:.4f} ms ({t['bytes']} bytes); library call: none, no single PyTorch call computes the "
+        f"fused scan [{card}]",
     ]
 
 
@@ -4675,6 +4887,7 @@ def main() -> int:
     start = time.perf_counter()
     ptxas = start_ptxas_report("binpack")
     forecast_ptxas = start_ptxas_report("forecast")
+    fused_ptxas = start_ptxas_report("fused_schedule")
     libs = _build.build()
     print(f"build: {', '.join(sorted(libs))} in {time.perf_counter() - start:.3f} s")
     from platform_aware_scheduling_tpu_torch import native
@@ -4687,6 +4900,12 @@ def main() -> int:
     print(f"build: {native.so_path().name} (the verbs' wire extension, cc) in {time.perf_counter() - start:.3f} s")
     instances = binpack_ptxas_report(ptxas)
     forecast_resources = forecast_ptxas_report(forecast_ptxas)
+    fused_resources = fused_ptxas_report(fused_ptxas)
+    print(
+        "fused scan kernels (-Xptxas -v): " + ", ".join(
+            f"{name} {v['registers']} registers, {v['stack']} bytes of stack, {v['spills']} of spills"
+            for name, v in sorted(fused_resources.items()))
+    )
     print(
         f"forecast ring kernel (-Xptxas -v): {forecast_resources['registers']} registers, "
         f"{forecast_resources['stack']} bytes of stack, {forecast_resources['spills']} of spills"
@@ -4921,6 +5140,15 @@ def main() -> int:
             "bytes": fused_times["bytes"],
             "binpack_launches": fused_out["binpack_launches"],
             "parity_cases": fused_out["cases"],
+            "candidates_ms": fused_times["candidates_ms"],
+            "resolve_ms": fused_times["resolve_ms"],
+            "rescans": fused_out["rescans"],
+            "revivals": fused_out["revivals"],
+            "edge_rescans": fused_out["edge_rescans"],
+            "edge_revivals": fused_out["edge_revivals"],
+            "list_size": fused_out["list_size"],
+            "revived_size": fused_out["revived_size"],
+            "registers": {name: v["registers"] for name, v in fused_resources.items()},
         },
     ]
     print(json.dumps({"kernels": kernels}))

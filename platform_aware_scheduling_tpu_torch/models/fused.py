@@ -26,7 +26,7 @@ kernel (``ops/cuda_fused.py`` → ``csrc/fused_schedule.cu``) on a GPU.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -135,6 +135,113 @@ def fused_scan_reference(
         fits.index_copy_(1, node, torch.where(found, column, fits.index_select(1, node)[:, 0]).unsqueeze(1))
         cap.index_add_(0, node, -found.to(torch.int32).view(1))
     return FusedScan(node_for_pod, cap, used, fits)
+
+
+class StagedStats(NamedTuple):
+    rescans: int  # pods whose whole row was rescanned
+    revivals: int  # refits that turned a class fit from false to true
+
+
+def fused_scan_staged_reference(
+    score: torch.Tensor,
+    eligible: torch.Tensor,
+    capacity: torch.Tensor,
+    req_class: torch.Tensor,
+    fits0: torch.Tensor,
+    gas: BinpackNodeState,
+    requests: FusedRequests,
+    max_gpus: int,
+    list_size: int,
+    revived_size: int,
+) -> Tuple[FusedScan, StagedStats]:
+    """The CUDA kernel's two launches in plain PyTorch, for tests and
+    ``chip_smoke.py``: the scan and the resolve's counts.  Equal to
+    :func:`fused_scan_reference`; the source note of
+    ``csrc/fused_schedule.cu`` argues why.
+
+    The candidate pass lists, for each pod, its best ``list_size``
+    starting-ok lanes (``eligible & capacity > 0 & fits0[class]``) by
+    (score descending, index ascending) and counts them all.  The resolve
+    walks the pods in order.  A refit that turns class t on for a node puts
+    the node on class t's revived list (unless it is on it; a list full at
+    ``revived_size`` marks the class overflowed for good).  A pod of class
+    t whose class overflowed is rescanned; otherwise it drops the revived
+    nodes no longer ok for the class, takes the first listed lane still ok
+    and weighs it against the best revived node ok and eligible for it;
+    with no listed lane ok it rescans when the row had more starting-ok
+    lanes than the list, and otherwise takes the best revived node or
+    -1."""
+    if list_size < 1 or revived_size < 1:
+        raise ValueError(f"list_size and revived_size must be at least 1, got {list_size}, {revived_size}")
+    p, n = eligible.shape
+    device = eligible.device
+    used = gas.used.clone()
+    if p == 0 or n == 0:
+        node_for_pod = torch.full((p,), -1, dtype=torch.int32, device=device)
+        return FusedScan(node_for_pod, capacity.to(torch.int32).clone(), used, fits0.clone()), StagedStats(0, 0)
+    t = requests.need.shape[0]
+    eligible = eligible.bool()
+    start_ok = eligible & (capacity > 0) & fits0[req_class.long()]
+    counts = start_ok.sum(dim=1).tolist()
+    # stable sorts: score descending keeps equal scores in index order, then
+    # starting-ok lanes ahead of the rest
+    by_score = torch.sort(score, dim=1, descending=True, stable=True).indices
+    ok_first = torch.sort((~start_ok.gather(1, by_score)).to(torch.uint8), dim=1, stable=True).indices
+    lists = by_score.gather(1, ok_first[:, : min(list_size, n)]).tolist()
+    classes = req_class.tolist()
+    cap = capacity.tolist()
+    fits = fits0.tolist()
+    card_ok = gas.card_valid & gas.card_real
+    revived = [[] for _ in range(t)]
+    overflow = [False] * t
+    node_for_pod = [-1] * p
+    rescans = revivals = 0
+    for pod in range(p):
+        cls = classes[pod]
+        fit = fits[cls]
+        winner = None  # None: rescan
+        if not overflow[cls]:
+            revived[cls] = [node for node in revived[cls] if cap[node] > 0 and fit[node]]
+            live = next((node for node in lists[pod][: counts[pod]] if cap[node] > 0 and fit[node]), None)
+            if live is not None or counts[pod] <= list_size:
+                weighed = [node for node in revived[cls] if bool(eligible[pod, node])]
+                weighed += [] if live is None else [live]
+                winner = max(weighed, key=lambda node: (int(score[pod, node]), -node), default=-1)
+        if winner is None:
+            rescans += 1
+            ok = eligible[pod] & (torch.tensor(cap, device=device) > 0) & torch.tensor(fit, device=device)
+            best, found = lex_argmin(i64.flip(score[pod]), ok)
+            winner = int(best) if bool(found) else -1
+        node_for_pod[pod] = winner
+        if winner < 0:
+            continue
+        node = torch.tensor([winner], device=device)
+        node_args = (
+            gas.capacity.index_select(0, node)[0],
+            gas.cap_present.index_select(0, node)[0],
+            card_ok.index_select(0, node)[0],
+            gas.card_order.index_select(0, node)[0],
+        )
+        _fit, _picks, booked = fit_one_node(used[winner], *node_args, requests.request(cls), max_gpus)
+        used[winner] = booked
+        cap[winner] -= 1
+        for k in range(t):
+            now = bool(fit_one_node(booked, *node_args, requests.request(k), max_gpus)[0])
+            if now and not fits[k][winner]:
+                revivals += 1
+                if winner not in revived[k]:
+                    if len(revived[k]) < revived_size:
+                        revived[k].append(winner)
+                    else:
+                        overflow[k] = True
+            fits[k][winner] = now
+    scan = FusedScan(
+        torch.tensor(node_for_pod, dtype=torch.int32, device=device),
+        torch.tensor(cap, dtype=torch.int32, device=device),
+        used,
+        torch.tensor(fits, dtype=torch.bool, device=device),
+    )
+    return scan, StagedStats(rescans, revivals)
 
 
 def fused_scan(

@@ -2,26 +2,34 @@
 
 The kernel (``csrc/fused_schedule.cu``) replaces the ``lax.scan`` over pods
 of ``platform_aware_scheduling_tpu/models/fused.py`` (``fused_schedule``);
-its source note gives the design and the bound.  This wrapper checks its
-inputs (device, dtype, contiguity, shapes, the kernel's limits and that
-every pod's class is in ``[0, T)``), allocates the outputs and the
-partials buffer of the grid's reduction, makes one cooperative launch on
-PyTorch's current stream and raises on a launch error.  Its plain
-counterpart is ``models/fused.fused_scan_reference``.
+its source note gives the design, the exactness argument and the bound.
+This wrapper checks its inputs (device, dtype, contiguity, shapes, the
+kernel's limits, the resolve block's shared memory and that every pod's
+class is in ``[0, T)``), allocates the outputs and the scratch, makes the
+two launches (the candidate pass, then the resolve) on PyTorch's current
+stream and raises on a launch error.  Its plain counterpart is
+``models/fused.fused_scan_reference``; ``models/fused.fused_scan_staged_reference``
+is the plain model of the two launches, rescans and revivals included.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import torch
 
 from platform_aware_scheduling_tpu_torch.ops import _build
 from platform_aware_scheduling_tpu_torch.ops.binpack import BinpackNodeState
 
+# The kernel's list length and revived-list room (its L and REVIVED); the
+# library's values are checked against these when it loads.
+LIST_SIZE = 128
+REVIVED_SIZE = 256
+
 _lib = None
 _limits = None
+_max_shared = {}
 
 
 class _Limits(NamedTuple):
@@ -36,20 +44,61 @@ def _library() -> ctypes.CDLL:
     global _lib, _limits
     if _lib is None:
         lib = _build.load("fused_schedule")
-        lib.fused_schedule_launch.argtypes = (
-            [ctypes.c_void_p] * 21 + [ctypes.c_longlong] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-        )
-        lib.fused_schedule_launch.restype = ctypes.c_int
-        lib.fused_schedule_blocks.argtypes = [ctypes.c_int]
-        lib.fused_schedule_blocks.restype = ctypes.c_int
-        for name in ("fused_schedule_max_cards", "fused_schedule_max_containers", "fused_schedule_max_row"):
+        lib.fused_schedule_candidates_launch.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.fused_schedule_candidates_launch.restype = ctypes.c_int
+        lib.fused_schedule_resolve_launch.argtypes = [ctypes.c_void_p] * 21 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        lib.fused_schedule_resolve_launch.restype = ctypes.c_int
+        lib.fused_schedule_shared_bytes.argtypes = [ctypes.c_int] * 5
+        lib.fused_schedule_shared_bytes.restype = ctypes.c_longlong
+        lib.fused_schedule_max_shared.argtypes = [ctypes.c_int]
+        lib.fused_schedule_max_shared.restype = ctypes.c_int
+        lib.fused_schedule_max_nodes.argtypes = [ctypes.c_int] * 5
+        lib.fused_schedule_max_nodes.restype = ctypes.c_int
+        for name in (
+            "fused_schedule_list_size",
+            "fused_schedule_revived_size",
+            "fused_schedule_max_cards",
+            "fused_schedule_max_containers",
+            "fused_schedule_max_row",
+        ):
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = ctypes.c_int
+        sizes = (lib.fused_schedule_list_size(), lib.fused_schedule_revived_size())
+        if sizes != (LIST_SIZE, REVIVED_SIZE):
+            raise RuntimeError(f"fused_schedule kernel has list sizes {sizes}, the wrapper {(LIST_SIZE, REVIVED_SIZE)}")
         _limits = _Limits(
             lib.fused_schedule_max_cards(), lib.fused_schedule_max_containers(), lib.fused_schedule_max_row()
         )
         _lib = lib
     return _lib
+
+
+def max_shared(device: torch.device) -> int:
+    """Bytes of dynamic shared memory the resolve block may use on ``device``."""
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    if index not in _max_shared:
+        avail = _library().fused_schedule_max_shared(index)
+        if avail < 0:
+            raise RuntimeError("fused_schedule_max_shared failed: CUDA error")
+        _max_shared[index] = avail
+    return _max_shared[index]
+
+
+def shared_bytes(n: int, c: int, r: int, t: int, tc: int) -> int:
+    """Bytes of dynamic shared memory the resolve block needs at this shape:
+    N x (T + 4) for the capacity and fits, plus what does not grow with N."""
+    return _library().fused_schedule_shared_bytes(n, c, r, t, tc)
+
+
+def max_nodes(device: torch.device, c: int, r: int, t: int, tc: int) -> int:
+    """The largest N the resolve block takes on ``device`` at C, R, T, Tc."""
+    index = torch.device(device).index
+    limit = _library().fused_schedule_max_nodes(torch.cuda.current_device() if index is None else index, c, r, t, tc)
+    if limit < 0:
+        raise RuntimeError("fused_schedule_max_nodes failed: CUDA error")
+    return limit
 
 
 def _check(score, eligible, capacity, req_class, fits0, gas, requests, max_gpus) -> None:
@@ -111,7 +160,7 @@ def _check(score, eligible, capacity, req_class, fits0, gas, requests, max_gpus)
             )
     if max_gpus < 0:
         raise ValueError(f"fused_schedule_cuda: max_gpus {max_gpus} is negative")
-    if n >= 2**31 or t >= 2**31 or max_gpus >= 2**31:
+    if p >= 2**31 or n >= 2**31 or t >= 2**31 or max_gpus >= 2**31:
         raise ValueError("fused_schedule_cuda: a dimension exceeds int32")
     _library()
     if c == 0 or c > _limits.cards:
@@ -120,6 +169,14 @@ def _check(score, eligible, capacity, req_class, fits0, gas, requests, max_gpus)
         raise ValueError(f"fused_schedule_cuda: Tc={tc} containers, the kernel takes at most {_limits.containers}")
     if c * r > _limits.row:
         raise ValueError(f"fused_schedule_cuda: C x R = {c * r} amounts a node, the kernel takes at most {_limits.row}")
+    if n and t:
+        need, avail = shared_bytes(n, c, r, t, tc), max_shared(score.device)
+        if need > avail:
+            raise ValueError(
+                f"fused_schedule_cuda: N={n} nodes need {need} bytes of the resolve block's shared memory "
+                f"(N x (T + 4) = {n * (t + 4)} of them), the card gives {avail}: at C={c}, R={r}, T={t}, Tc={tc} "
+                f"the kernel takes at most {max_nodes(score.device, c, r, t, tc)} nodes"
+            )
     if p:
         low, high = (int(x) for x in torch.aminmax(req_class))
         if low < 0 or high >= t:
@@ -137,52 +194,108 @@ def fused_schedule_cuda(
     max_gpus: int,
 ):
     """The scan by the CUDA kernel: a ``models/fused.FusedScan``.  Counts
-    each launch in ``fused_schedule_cuda.LAUNCHES``."""
+    each call, which launches both stages, in ``fused_schedule_cuda.LAUNCHES``."""
+    return fused_schedule_cuda_with_stats(score, eligible, capacity, req_class, fits0, gas, requests, max_gpus)[0]
+
+
+def fused_schedule_cuda_with_stats(score, eligible, capacity, req_class, fits0, gas, requests, max_gpus):
+    """:func:`fused_schedule_cuda` and the resolve's counts: (FusedScan,
+    int32 [2] on the card: the pods rescanned, the revivals)."""
     from platform_aware_scheduling_tpu_torch.models.fused import FusedScan
 
     _check(score, eligible, capacity, req_class, fits0, gas, requests, max_gpus)
     p, n = score.shape
     if p == 0 or n == 0:
         node_for_pod = torch.full((p,), -1, dtype=torch.int32, device=score.device)
-        return FusedScan(node_for_pod, capacity.clone(), gas.used.clone(), fits0.clone())
-    return FusedScan(*launch(score, eligible, capacity, req_class, fits0, gas, requests, max_gpus))
+        stats = torch.zeros(2, dtype=torch.int32, device=score.device)
+        return FusedScan(node_for_pod, capacity.clone(), gas.used.clone(), fits0.clone()), stats
+    *scan, stats = launch(score, eligible, capacity, req_class, fits0, gas, requests, max_gpus)
+    return FusedScan(*scan), stats
+
+
+def _raise_on(err: int, stage: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"fused_schedule {stage} kernel launch failed: cudaError {err}")
 
 
 def launch(score, eligible, capacity, req_class, fits0, gas, requests, max_gpus):
-    """One launch on inputs :func:`fused_schedule_cuda` has checked, P and
-    N > 0: (node_for_pod, capacity_left, used, fits).  Counted in
+    """Both launches on inputs :func:`fused_schedule_cuda` has checked, P
+    and N > 0: (node_for_pod, capacity_left, used, fits, stats).  Counted in
     ``fused_schedule_cuda.LAUNCHES``; it syncs nowhere, so the timing in
     ``chip_smoke.py`` can capture it in a CUDA graph."""
+    lists, counts, used = launch_candidates(score, eligible, capacity, req_class, fits0, gas)
+    out = launch_resolve(score, eligible, capacity, req_class, fits0, gas, requests, max_gpus, lists, counts, used)
+    fused_schedule_cuda.LAUNCHES += 1
+    return out
+
+
+def launch_candidates(score, eligible, capacity, req_class, fits0, gas) -> Tuple[torch.Tensor, ...]:
+    """The candidate pass alone, on checked inputs: each pod's best
+    starting-ok lanes in rank order (int32 [P, L], the first min(L,
+    count) valid), its count of starting-ok lanes (int32 [P]) and a copy
+    of the usage for the resolve to book into.  Not counted in
+    ``LAUNCHES``."""
     p, n = score.shape
     _n, c, r = gas.used.shape
-    t, tc, _r = requests.need.shape
     device = score.device
-    lib = _library()
+    lists = torch.empty((p, LIST_SIZE), dtype=torch.int32, device=device)
+    counts = torch.empty(p, dtype=torch.int32, device=device)
+    used = torch.empty_like(gas.used)
     with torch.cuda.device(device):
-        blocks = lib.fused_schedule_blocks(n)
-        if blocks <= 0:
-            raise RuntimeError("fused_schedule_blocks failed: CUDA error")
-        node_for_pod = torch.empty(p, dtype=torch.int32, device=device)
-        capacity_left = torch.empty(n, dtype=torch.int32, device=device)
-        used = torch.empty_like(gas.used)
-        fits = torch.empty_like(fits0)
-        partial_score = torch.empty(2 * blocks, dtype=torch.int64, device=device)
-        partial_node = torch.empty(2 * blocks, dtype=torch.int32, device=device)
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.fused_schedule_launch(
+        err = _library().fused_schedule_candidates_launch(
             score.data_ptr(),
             eligible.data_ptr(),
             capacity.data_ptr(),
             req_class.data_ptr(),
             fits0.data_ptr(),
-            *(tensor.data_ptr() for tensor in gas),
+            gas.used.data_ptr(),
+            used.data_ptr(),
+            lists.data_ptr(),
+            counts.data_ptr(),
+            p,
+            n,
+            c,
+            r,
+            stream,
+        )
+    _raise_on(err, "candidate")
+    return lists, counts, used
+
+
+def launch_resolve(score, eligible, capacity, req_class, fits0, gas, requests, max_gpus, lists, counts, used):
+    """The resolve alone, on checked inputs and the candidate pass's
+    output; books into ``used`` in place.  Returns (node_for_pod,
+    capacity_left, used, fits, stats).  Not counted in ``LAUNCHES``."""
+    p, n = score.shape
+    _n, c, r = gas.used.shape
+    t, tc, _r = requests.need.shape
+    device = score.device
+    node_for_pod = torch.empty(p, dtype=torch.int32, device=device)
+    capacity_left = torch.empty(n, dtype=torch.int32, device=device)
+    fits = torch.empty_like(fits0)
+    stats = torch.empty(2, dtype=torch.int32, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = _library().fused_schedule_resolve_launch(
+            score.data_ptr(),
+            eligible.data_ptr(),
+            capacity.data_ptr(),
+            req_class.data_ptr(),
+            fits0.data_ptr(),
+            gas.capacity.data_ptr(),
+            gas.cap_present.data_ptr(),
+            gas.card_valid.data_ptr(),
+            gas.card_real.data_ptr(),
+            gas.card_order.data_ptr(),
             *(tensor.data_ptr() for tensor in requests),
+            lists.data_ptr(),
+            counts.data_ptr(),
             node_for_pod.data_ptr(),
             capacity_left.data_ptr(),
             used.data_ptr(),
             fits.data_ptr(),
-            partial_score.data_ptr(),
-            partial_node.data_ptr(),
+            stats.data_ptr(),
             p,
             n,
             c,
@@ -192,10 +305,8 @@ def launch(score, eligible, capacity, req_class, fits0, gas, requests, max_gpus)
             max_gpus,
             stream,
         )
-    if err != 0:
-        raise RuntimeError(f"fused_schedule kernel launch failed: cudaError {err}")
-    fused_schedule_cuda.LAUNCHES += 1
-    return node_for_pod, capacity_left, used, fits
+    _raise_on(err, "resolve")
+    return node_for_pod, capacity_left, used, fits, stats
 
 
 fused_schedule_cuda.LAUNCHES = 0

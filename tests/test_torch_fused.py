@@ -19,6 +19,7 @@ from platform_aware_scheduling_tpu.ops import i64 as jax_i64
 from platform_aware_scheduling_tpu_torch import convert
 from platform_aware_scheduling_tpu_torch.models import fused
 from platform_aware_scheduling_tpu_torch.ops import _build, cuda_binpack, cuda_fused
+from platform_aware_scheduling_tpu_torch.ops.binpack import BinpackRequest, fit_one_node
 from platform_aware_scheduling_tpu_torch.ops.i64 import INT64_MAX, split_int64
 
 
@@ -124,7 +125,35 @@ PARITY = {
         f"seed sweep {seed}": (48, 20, seed, {"num_cards": 3, "num_res": 2, "num_classes": 2})
         for seed in range(6)
     },
+    "revival": (16, 12, 23, {"num_cards": 3, "num_res": 2, "num_classes": 2}),
 }
+
+# three cards of room (10, 10) booked (0, 0), (10, 10) and (0, 5); class X
+# books (10, 0) on one card, class Y (1, 5) then (0, 8)
+REVIVAL_USED = [[0, 0], [10, 10], [0, 5]]
+REVIVAL_NEED = [[[10, 0], [0, 0]], [[1, 5], [0, 8]]]
+
+
+def _revival_edit(state, pods, req_class, gas_np, req_np, hosts):
+    """Every node as REVIVAL_USED: class Y (1) fits no node until class X
+    (0) books a node's first card.  The classes alternate from X, every pod
+    may use every node and each node takes three pods; the host control's
+    GAS state is edited alike."""
+    gas_np["capacity"][:] = 10
+    gas_np["used"][:] = REVIVAL_USED
+    req_np["need"][:] = REVIVAL_NEED
+    req_np["need_active"][:] = True
+    req_np["num_gpus"][:] = [[1, 0], [1, 1]]
+    req_np["container_active"][:] = True
+    hosts.update(cap=gas_np["capacity"], used=gas_np["used"], need=req_np["need"],
+                 need_active=req_np["need_active"], num_gpus=req_np["num_gpus"])
+    req_class = (np.arange(req_class.shape[0]) % 2).astype(req_class.dtype)
+    state = state._replace(capacity=jnp.full_like(state.capacity, 3))
+    pods = pods._replace(candidates=jnp.ones_like(pods.candidates))
+    return state, pods, req_class
+
+
+EDITS = {"revival": _revival_edit}
 
 
 class TestFusedParity:
@@ -132,6 +161,8 @@ class TestFusedParity:
     def test_equals_jax(self, case):
         nodes, pods_n, seed, kw = PARITY[case]
         state, pods, req_class, gas_np, req_np, max_gpus, hosts = _numpy_problem(nodes, pods_n, seed, **kw)
+        if case in EDITS:
+            state, pods, req_class = EDITS[case](state, pods, req_class, gas_np, req_np, hosts)
         want, got = _solve_both(state, pods, req_class, gas_np, req_np, max_gpus)
         _assert_equal(want, got)
         # and the sequential TAS-then-GAS host control agrees
@@ -139,6 +170,13 @@ class TestFusedParity:
         np.testing.assert_array_equal(got.node_for_pod.numpy(), host_assign)
         if case == "scarce cards":
             assert (got.node_for_pod == -1).any()  # scarcity reached
+        if case == "revival":
+            # each Y pod lands on the node the X pod before it booked, which
+            # Y did not fit at the start: its fit there was turned back on
+            placed = got.node_for_pod.numpy()
+            later = np.flatnonzero(req_class == 1)
+            assert (placed[later] >= 0).all()
+            np.testing.assert_array_equal(placed[later], placed[later - 1])
 
     def test_inactive_resource_not_booked(self):
         """A resource absent from a class (need_active False) with a huge
@@ -209,7 +247,64 @@ class TestFusedParity:
         assert (got.used.numpy() >= gas_np["used"]).all()
 
 
+class TestRevival:
+    def test_a_booking_turns_a_fit_back_on(self):
+        """First-fit over several resources is not monotone in usage: Y does
+        not fit REVIVAL_USED, X books its first card, and then Y fits."""
+        cap = torch.full((2,), 10, dtype=torch.int64)
+        args = (cap, torch.ones(2, dtype=torch.bool), torch.ones(3, dtype=torch.bool), torch.arange(3, dtype=torch.int32))
+
+        def request(cls):
+            need = torch.tensor(REVIVAL_NEED[cls], dtype=torch.int64)
+            gpus = torch.tensor([[1, 0], [1, 1]][cls], dtype=torch.int32)
+            return BinpackRequest(need, torch.ones((2, 2), dtype=torch.bool), gpus, torch.ones(2, dtype=torch.bool))
+
+        used = torch.tensor(REVIVAL_USED, dtype=torch.int64)
+        assert not bool(fit_one_node(used, *args, request(1), 2)[0])
+        ok, _picks, booked = fit_one_node(used, *args, request(0), 2)
+        assert bool(ok) and booked[0].tolist() == [10, 0]
+        assert bool(fit_one_node(booked, *args, request(1), 2)[0])
+
+
+class TestStagedModel:
+    """``models/fused.fused_scan_staged_reference``, the plain model of the
+    kernel's two launches, equals the plain scan on every edge case of the
+    chip script, at the kernel's list sizes and at sizes so small that the
+    lists run out and the revived lists overflow."""
+
+    @pytest.mark.parametrize("sizes", [(cuda_fused.LIST_SIZE, cuda_fused.REVIVED_SIZE), (2, 1)], ids=["kernel", "tiny"])
+    @pytest.mark.parametrize("name", [name for name, _problem in chip_smoke.fused_edge_cases(torch, np, "cpu")])
+    def test_equals_the_plain_scan(self, name, sizes):
+        problem = dict(chip_smoke.fused_edge_cases(torch, np, "cpu"))[name]
+        args = chip_smoke.fused_scan_args(torch, problem)
+        want = fused.fused_scan_reference(*args)
+        got, stats = fused.fused_scan_staged_reference(*args, *sizes)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        if sizes == (2, 1) and problem.pods.candidates.shape[0] > 2:
+            assert stats.rescans > 0
+
+    def test_refuses_an_empty_list(self):
+        problem = chip_smoke.fused_problem(torch, np, "cpu", num_nodes=8, num_pods=2)
+        with pytest.raises(ValueError, match="at least 1"):
+            fused.fused_scan_staged_reference(*chip_smoke.fused_scan_args(torch, problem), 0, 1)
+
+
 class TestChipRecipe:
+    @pytest.mark.parametrize("name", list(chip_smoke.FUSED_CASE_WANTS))
+    def test_edge_case_exercises_what_it_names(self, name):
+        """The revival, overflow, rescan and exhausted-list cases of the chip
+        script really revive, rescan and use up a complete list under the
+        plain scan and the staged model at the kernel's sizes, so none can
+        silently stop testing what it names."""
+        problem = dict(chip_smoke.fused_edge_cases(torch, np, "cpu"))[name]
+        args = chip_smoke.fused_scan_args(torch, problem)
+        want = fused.fused_scan_reference(*args)
+        _scan, stats = fused.fused_scan_staged_reference(*args, cuda_fused.LIST_SIZE, cuda_fused.REVIVED_SIZE)
+        facts = chip_smoke.fused_case_facts(torch, args, want.node_for_pod, stats)
+        for key in chip_smoke.FUSED_CASE_WANTS[name]:
+            assert facts[key] > 0, (name, key, facts)
+
     def test_chip_smoke_draws_the_benchmark_problem(self):
         """``chip_smoke.fused_problem`` (the chip script's numpy copy of
         ``_fused_problem``, which imports nothing of the JAX package) draws
